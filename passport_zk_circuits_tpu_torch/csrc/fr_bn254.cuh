@@ -1,0 +1,185 @@
+// BN254 scalar field Fr: add, sub, Montgomery mul and sqr, per lane.
+//
+// Counterpart of the field building blocks of
+// passport_zk_circuits_tpu/ops/pallas_field.py (school_mul, barrett_static,
+// modmul, addmod, submod). The TPU kernels keep 16-bit limbs in [0, 2P) and
+// run the limb products as byte matmuls on the MXU; none of that carries
+// over. Here an element is 8 little-endian 32-bit words in Montgomery form
+// (x * 2^256 mod P), always canonical (< P); the product is CIOS Montgomery
+// multiplication with 64-bit partial products. Conversion happens only at a
+// kernel's boundary (to_mont / from_mont), where values are canonical
+// 16-bit limbs as in the rest of the port.
+//
+// Everything is __host__ __device__ and free of CUDA intrinsics, so g++
+// compiles the same arithmetic for the host tests.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define PZK_HD __host__ __device__ __forceinline__
+#else
+#define PZK_HD inline
+#endif
+
+namespace fr {
+
+constexpr int NW = 8;  // 32-bit words per element
+
+#define PZK_FR_P 0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, \
+                 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u
+// 2^512 mod P: to_mont multiplies by it
+#define PZK_FR_R2 0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u, \
+                  0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u
+// 2^256 mod P: one in Montgomery form
+#define PZK_FR_ONE 0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, \
+                   0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u
+constexpr uint32_t PINV = 0xefffffffu;  // -P^-1 mod 2^32
+
+struct Fe {
+  uint32_t w[NW];
+};
+
+PZK_HD Fe zero() {
+  Fe r;
+  for (int i = 0; i < NW; ++i) r.w[i] = 0;
+  return r;
+}
+
+PZK_HD Fe one_mont() {
+  const uint32_t o[NW] = {PZK_FR_ONE};
+  Fe r;
+  for (int i = 0; i < NW; ++i) r.w[i] = o[i];
+  return r;
+}
+
+// r = x - P if x >= P (x given as 8 words plus a ninth, top word)
+PZK_HD Fe reduce_once(const uint32_t x[NW], uint32_t top) {
+  const uint32_t p[NW] = {PZK_FR_P};
+  Fe d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t v = (uint64_t)x[i] - p[i] - borrow;
+    d.w[i] = (uint32_t)v;
+    borrow = (v >> 32) & 1;
+  }
+  if (top == 0 && borrow) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) d.w[i] = x[i];
+  }
+  return d;
+}
+
+// a + b mod P, a, b < P
+PZK_HD Fe add(const Fe& a, const Fe& b) {
+  uint32_t s[NW];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t v = (uint64_t)a.w[i] + b.w[i] + c;
+    s[i] = (uint32_t)v;
+    c = v >> 32;
+  }
+  return reduce_once(s, (uint32_t)c);
+}
+
+// a - b mod P, a, b < P
+PZK_HD Fe sub(const Fe& a, const Fe& b) {
+  const uint32_t p[NW] = {PZK_FR_P};
+  Fe d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t v = (uint64_t)a.w[i] - b.w[i] - borrow;
+    d.w[i] = (uint32_t)v;
+    borrow = (v >> 32) & 1;
+  }
+  if (borrow) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      uint64_t v = (uint64_t)d.w[i] + p[i] + c;
+      d.w[i] = (uint32_t)v;
+      c = v >> 32;
+    }
+  }
+  return d;
+}
+
+// Montgomery product a * b / 2^256 mod P (CIOS). a < 2^256, b < P gives
+// t < 2P before the final subtract, so the result is canonical.
+PZK_HD Fe mul(const Fe& a, const Fe& b) {
+  const uint32_t p[NW] = {PZK_FR_P};
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int i = 0; i < NW + 2; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      uint64_t v = (uint64_t)t[j] + (uint64_t)a.w[j] * b.w[i] + c;
+      t[j] = (uint32_t)v;
+      c = v >> 32;
+    }
+    uint64_t v = (uint64_t)t[NW] + c;
+    t[NW] = (uint32_t)v;
+    t[NW + 1] = (uint32_t)(v >> 32);
+    uint32_t m = t[0] * PINV;
+    v = (uint64_t)t[0] + (uint64_t)m * p[0];
+    c = v >> 32;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      v = (uint64_t)t[j] + (uint64_t)m * p[j] + c;
+      t[j - 1] = (uint32_t)v;
+      c = v >> 32;
+    }
+    v = (uint64_t)t[NW] + c;
+    t[NW - 1] = (uint32_t)v;
+    t[NW] = t[NW + 1] + (uint32_t)(v >> 32);
+  }
+  return reduce_once(t, t[NW]);
+}
+
+PZK_HD Fe sqr(const Fe& a) { return mul(a, a); }
+
+PZK_HD Fe to_mont(const Fe& a) {
+  const uint32_t r2[NW] = {PZK_FR_R2};
+  Fe b;
+  for (int i = 0; i < NW; ++i) b.w[i] = r2[i];
+  return mul(a, b);
+}
+
+PZK_HD Fe from_mont(const Fe& a) {
+  Fe one = zero();
+  one.w[0] = 1;
+  return mul(a, one);
+}
+
+PZK_HD Fe select(bool c, const Fe& a, const Fe& b) { return c ? a : b; }
+
+// 16 little-endian 16-bit limbs (int64 each) at x[i * stride] -> words
+PZK_HD Fe load_limbs(const int64_t* x, long stride) {
+  Fe r;
+  for (int i = 0; i < NW; ++i)
+    r.w[i] = (uint32_t)(x[(2 * i) * stride] & 0xFFFF) |
+             ((uint32_t)(x[(2 * i + 1) * stride] & 0xFFFF) << 16);
+  return r;
+}
+
+PZK_HD void store_limbs(const Fe& a, int64_t* x, long stride) {
+  for (int i = 0; i < NW; ++i) {
+    x[(2 * i) * stride] = a.w[i] & 0xFFFF;
+    x[(2 * i + 1) * stride] = a.w[i] >> 16;
+  }
+}
+
+// Montgomery-form constant stored as 8 words at c
+PZK_HD Fe load_words(const uint32_t* c) {
+  Fe r;
+  for (int i = 0; i < NW; ++i) r.w[i] = c[i];
+  return r;
+}
+
+}  // namespace fr

@@ -1,0 +1,67 @@
+"""Batched RegisterIdentity: the flagship registration circuit family.
+
+Counterpart of ``passport_zk_circuits_tpu/models/register_identity.py``.
+Outputs (batched Fr limbs): dg15_pubkey_hash, passport_hash, dg1_commitment,
+pk_identity_hash — the four public outputs of the reference builder — plus
+the flow / signature / SMT verdicts. ECDSA active authentication is still to
+port (ROADMAP queue 1, "All SIG_ALGO branches") and raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import babyjubjub as bjj
+from ..ops import bitops
+from ..ops import field as fr
+from ..ops import poseidon as pos
+from . import passport_verification as pv
+from ..shared import params
+
+
+class RegisterIdentityInputs(NamedTuple):
+    passport: pv.PassportInputs
+    sk_identity: torch.Tensor         # (16, B) Fr limbs
+
+
+def dg15_pubkey_hash(p: params.CircuitParams, dg15_words):
+    """Active-auth public key hash: Poseidon5 of the RSA-1024 AA modulus in
+    big-endian chunks of 200+200+200+200+224 bits; 0 without AA."""
+    aa = p.aa_signature_algo
+    if aa == 0:
+        return fr.const(0, dg15_words.shape[1:], dg15_words.device)
+    if aa >= 20:
+        raise NotImplementedError(
+            "ECDSA active authentication is not ported yet "
+            "(ROADMAP queue 1: All SIG_ALGO branches)")
+    chunks = [bitops.word_slice_to_fr(dg15_words, p.aa_shift + j * 200, 200,
+                                      msb_first=True) for j in range(4)]
+    chunks.append(bitops.word_slice_to_fr(dg15_words, p.aa_shift + 800, 224,
+                                          msb_first=True))
+    return pos.poseidon(chunks)
+
+
+def dg1_commitment(p: params.CircuitParams, dg1_words, sk_identity):
+    """Poseidon5 of 4 reversed-bit dg1 chunks + Poseidon1(skIdentity)."""
+    chunk_size = 186 if p.document_type == 3 else 190
+    chunks = [bitops.word_slice_to_fr(dg1_words, i * chunk_size, chunk_size,
+                                      msb_first=False) for i in range(4)]
+    return pos.poseidon(chunks + [pos.poseidon([sk_identity])])
+
+
+def pk_identity_hash(sk_identity):
+    """Poseidon2 of the BabyJubJub public key Base8 * sk."""
+    return pos.poseidon(list(bjj.base8_mul(sk_identity)))
+
+
+def forward(p: params.CircuitParams, inp: RegisterIdentityInputs):
+    """Full RegisterIdentityBuilder forward: a dict of the four public
+    outputs plus the verdicts."""
+    out = pv.forward(p, inp.passport)
+    out["dg15_pubkey_hash"] = dg15_pubkey_hash(p, inp.passport.dg15_words)
+    out["dg1_commitment"] = dg1_commitment(p, inp.passport.dg1_words,
+                                           inp.sk_identity)
+    out["pk_identity_hash"] = pk_identity_hash(inp.sk_identity)
+    return out

@@ -1,0 +1,106 @@
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
+
+Takes the place of the TPU package's ``pallas_field.use_pallas`` gate: there
+is no gate here. The kernel wrappers call ``library()`` the first time a CUDA
+tensor reaches them; it compiles every ``csrc/*.cu`` with nvcc for sm_90a
+into one shared library with a plain C interface, keyed by a hash of the
+sources and the flags, under ``passport_zk_circuits_tpu_torch/_build/``, and
+loads it with ctypes. A build that fails raises; nothing falls back.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "pzk_sha256": [_P, _P, _I, _I, _I, _P],
+    "pzk_rsa_pow": [_P, _P, _P, _P, _I, _I, ctypes.c_ulonglong, _P],
+    "pzk_poseidon": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pzk_smt_climb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pzk_ladder": [_P, _P, _P, _P, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (pathlib.Path(cand) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _key() -> str:
+    """Hash of the flags and every kernel source and header."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    so = BUILD_DIR / f"libpzk_kernels_{_key()}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, cwd=CSRC, capture_output=True, text=True)
+        (BUILD_DIR / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pzk_error_string.argtypes = [ctypes.c_int]
+    lib.pzk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().pzk_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def stream_of(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_int64(name: str, *tensors) -> None:
+    """The kernels take contiguous int64 tensors on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name}: expected int64, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

@@ -1,0 +1,149 @@
+"""The CUDA kernels' per-lane arithmetic, compiled for the host with g++.
+
+The headers under passport_zk_circuits_tpu_torch/csrc/ are __host__
+__device__ and free of CUDA intrinsics, so g++ builds them (through
+tests/torch_csrc_host_check.cc) into a small host library. Each check here
+holds one piece of kernel arithmetic against the port's plain PyTorch
+version and the Python-int oracle, bit for bit (tolerance 0: everything is
+integer arithmetic). This catches arithmetic faults before they reach the
+card; the kernels themselves are built and compared on the card by
+chip_smoke.py.
+"""
+
+import ctypes
+import hashlib
+import pathlib
+import random
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
+from passport_zk_circuits_tpu_torch.ops import bignum as bn
+from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
+from passport_zk_circuits_tpu_torch.ops import field as fr
+from passport_zk_circuits_tpu_torch.ops import poseidon as pos
+from passport_zk_circuits_tpu_torch.ops import sha2
+from passport_zk_circuits_tpu.utils import babyjubjub_ref as bref
+from passport_zk_circuits_tpu.utils import poseidon_ref as pref
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+_P64 = ctypes.POINTER(ctypes.c_int64)
+_PU32 = ctypes.POINTER(ctypes.c_uint32)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    so = tmp_path_factory.mktemp("csrc_host") / "libhostcheck.so"
+    subprocess.run(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+         "-I", str(ROOT / "passport_zk_circuits_tpu_torch" / "csrc"),
+         "-o", str(so), str(ROOT / "tests" / "torch_csrc_host_check.cc")],
+        check=True, capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+def _ptr(a: np.ndarray, typ=_P64):
+    return a.ctypes.data_as(typ)
+
+
+def _limbs(x: int, k: int = 16) -> np.ndarray:
+    return bn.int_to_limbs(x, k).astype(np.int64)
+
+
+def _int(a) -> int:
+    return bn.limbs_to_int(a)
+
+
+def _t(xs, k=16):
+    return bn.to_tensor(bn.ints_to_limbs_batch(xs, k), "cpu")
+
+
+rng = random.Random(404)
+EDGES = [0, 1, fr.P - 1]
+
+
+def test_fr_mul_sqr_add_sub_edges(lib):
+    xs = EDGES + [rng.randrange(fr.P) for _ in range(3)]
+    pairs = [(a, b) for a in xs for b in xs]
+    plain_mul = fr.batch_from_limbs(fr.mul(_t([a for a, _ in pairs]),
+                                           _t([b for _, b in pairs])))
+    for (a, b), want in zip(pairs, plain_mul):
+        out, s, d = (np.zeros(16, np.int64) for _ in range(3))
+        lib.host_fr_mul(_ptr(_limbs(a)), _ptr(_limbs(b)), _ptr(out))
+        lib.host_fr_add_sub(_ptr(_limbs(a)), _ptr(_limbs(b)), _ptr(s),
+                            _ptr(d))
+        assert _int(out) == want == a * b % fr.P
+        assert _int(s) == (a + b) % fr.P and _int(d) == (a - b) % fr.P
+    plain_sqr = fr.batch_from_limbs(fr.sqr(_t(xs)))
+    for a, want in zip(xs, plain_sqr):
+        out = np.zeros(16, np.int64)
+        lib.host_fr_sqr(_ptr(_limbs(a)), _ptr(out))
+        assert _int(out) == want == a * a % fr.P
+
+
+def test_sha256_compression(lib):
+    msg = bytes(rng.randrange(256) for _ in range(40))
+    block = sha2.bytes_to_words32(sha2.pad_message(msg, 512))
+    st = sha2.H256.copy()
+    lib.host_sha256_compress(_ptr(st, _PU32), _ptr(block, _PU32))
+    state = [torch.tensor([int(v)]) for v in sha2.H256]
+    plain = sha2._sha256_block(state, bn.to_tensor(block[:, None], "cpu"))
+    assert [int(v) for v in st] == [int(v) for v in plain]
+    assert b"".join(int(v).to_bytes(4, "big") for v in st) == \
+        hashlib.sha256(msg).digest()
+
+
+def test_poseidon_t3_permutation(lib):
+    ins = [rng.randrange(fr.P) for _ in range(2)]
+    state = np.concatenate([_limbs(0)] + [_limbs(x) for x in ins])
+    pack = cuda_poseidon._pack(3, torch.device("cpu")).numpy().view(np.uint32)
+    out = np.zeros(16, np.int64)
+    lib.host_poseidon3(_ptr(state), _ptr(np.ascontiguousarray(pack), _PU32),
+                       pos.N_ROUNDS_P[1], _ptr(out))
+    plain = fr.batch_from_limbs(pos.poseidon([_t([x]) for x in ins]))
+    assert [_int(out)] == plain == [pref.poseidon(ins)]
+
+
+def test_barrett_modmul_and_pow_k16(lib):
+    k = 16
+    mods = [rng.getrandbits(255) | (1 << 255) | 1 for _ in range(3)]
+    for m in mods:
+        x, y = rng.randrange(m), rng.randrange(m)
+        mu = bn.barrett_mu(m, k).astype(np.int64)
+        out = np.zeros(k, np.int64)
+        lib.host_barrett_mulmod(_ptr(_limbs(x, k)), _ptr(_limbs(y, k)),
+                                _ptr(_limbs(m, k)), _ptr(mu), k, _ptr(out))
+        plain = bn.mod_mul(_t([x], k), _t([y], k), _t([m], k),
+                           bn.to_tensor(mu[:, None], "cpu"))
+        assert _int(out) == bn.limbs_to_ints_batch(plain)[0] == x * y % m
+        for e in (3, 65537, 37187):
+            lib.host_pow_mod(_ptr(_limbs(x, k)), _ptr(_limbs(m, k)),
+                             _ptr(mu), k, ctypes.c_ulonglong(e), _ptr(out))
+            assert _int(out) == pow(x, e, m), e
+
+
+@pytest.mark.parametrize("bit", [0, 1])
+def test_ladder_step(lib, bit):
+    x, y = bref.base8_mul(rng.randrange(1, 1 << 40))
+    base = bjj.to_extended(_t([x]), _t([y]))
+    acc = bjj.double(bjj.double(base))          # a point with Z, T != 1
+    acc_np = np.concatenate([c[:, 0].numpy() for c in acc]).astype(np.int64)
+    base_np = np.concatenate([c[:, 0].numpy() for c in base]).astype(
+        np.int64)
+    lib.host_ladder_step(_ptr(acc_np), _ptr(base_np), bit)
+    want_acc = bjj.add(acc, base) if bit else acc
+    want_base = bjj.double(base)
+    for i in range(4):
+        assert _int(acc_np[16 * i:16 * i + 16]) == \
+            fr.batch_from_limbs(want_acc[i])[0]
+        assert _int(base_np[16 * i:16 * i + 16]) == \
+            fr.batch_from_limbs(want_base[i])[0]

@@ -1,0 +1,123 @@
+"""The five hand-written kernels on the card, each against its plain PyTorch
+version on the same CUDA tensors (bit for bit: tolerance 0), at small and
+ragged batches. Needs a CUDA device and skips without one. The machine with
+the card has no JAX, so run these without the repository's conftest:
+
+    python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from passport_zk_circuits_tpu.utils import poseidon_ref as pref
+from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
+from passport_zk_circuits_tpu_torch.ops import bignum as bn
+from passport_zk_circuits_tpu_torch.ops import cuda_babyjubjub
+from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
+from passport_zk_circuits_tpu_torch.ops import cuda_rsa
+from passport_zk_circuits_tpu_torch.ops import cuda_sha2
+from passport_zk_circuits_tpu_torch.ops import field as fr
+from passport_zk_circuits_tpu_torch.ops import smt
+
+pytestmark = pytest.mark.cuda
+
+rng = random.Random(7707)
+B = 37                          # not a multiple of a block: ragged edge
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card (README)")
+    return torch.device("cuda:0")
+
+
+def _fr(dev, n=B):
+    return bn.to_tensor(fr.batch_to_limbs(
+        [rng.randrange(fr.P) for _ in range(n)]), dev)
+
+
+def _same(a, b):
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+@pytest.mark.parametrize("algo", [224, 256])
+def test_sha_kernel(dev, nb, algo):
+    words = torch.tensor(np.array([[rng.randrange(1 << 32) for _ in range(B)]
+                                   for _ in range(16 * nb)]), device=dev)
+    assert words.dtype == torch.int64 and (words >= 1 << 31).any()
+    before = cuda_sha2.sha2_32_chunks.launches
+    out = cuda_sha2.sha2_32_chunks(words, algo)
+    assert cuda_sha2.sha2_32_chunks.launches == before + 1
+    _same(out, cuda_sha2.sha2_32_chunks_plain(words, algo))
+
+
+@pytest.mark.parametrize("k,exp", [(16, 3), (16, 65537), (16, 37187),
+                                   (128, 65537), (256, 65537)])
+def test_rsa_kernel(dev, k, exp):
+    mods = [rng.getrandbits(16 * k - 1) | (1 << (16 * k - 1)) | 1
+            for _ in range(B)]
+    sigs = [rng.randrange(m) for m in mods]
+    args = [bn.to_tensor(a, dev) for a in (
+        bn.ints_to_limbs_batch(sigs, k), bn.ints_to_limbs_batch(mods, k),
+        bn.barrett_mu_batch(mods, k))]
+    out = cuda_rsa.pow_mod(*args, exp)
+    _same(out, cuda_rsa.pow_mod_plain(*args, exp))
+    assert bn.limbs_to_ints_batch(out[:, :4]) == \
+        [pow(s, exp, m) for s, m in zip(sigs[:4], mods[:4])]
+
+
+@pytest.mark.parametrize("t", list(range(2, 18)))
+def test_poseidon_kernel_every_width(dev, t):
+    inputs = torch.stack([_fr(dev) for _ in range(t - 1)], 1)
+    n_outs = min(t, 2)
+    _same(cuda_poseidon.poseidon_ex(inputs, n_outs),
+          cuda_poseidon.poseidon_ex_plain(inputs, n_outs))
+
+
+def test_poseidon_kernel_initial_state_and_oracle(dev):
+    cols = [[rng.randrange(fr.P) for _ in range(B)] for _ in range(2)]
+    init = [rng.randrange(fr.P) for _ in range(B)]
+    ins = [bn.to_tensor(fr.batch_to_limbs(c), dev) for c in cols]
+    init_t = bn.to_tensor(fr.batch_to_limbs(init), dev)
+    out = cuda_poseidon.poseidon_ex(ins, 3, init_t)
+    _same(out, cuda_poseidon.poseidon_ex_plain(ins, 3, init_t))
+    for j in range(3):
+        assert fr.batch_from_limbs(out[:, j, :3]) == [
+            pref.poseidon_ex([c[i] for c in cols], 3, init[i])[j]
+            for i in range(3)]
+
+
+def test_smt_climb_kernel(dev):
+    n = 80
+    sibs = torch.zeros((16, n, B), dtype=torch.int64, device=dev)
+    for lane in range(1, B, 3):
+        depth = rng.randrange(1, 30)
+        sibs[:, :depth, lane] = _fr(dev, depth)
+    key, value = _fr(dev), _fr(dev)
+    args = (*smt.climb_inputs(key, sibs), key, value)
+    _same(cuda_poseidon.smt_climb(*args),
+          cuda_poseidon.smt_climb_plain(*args))
+
+
+def test_ladder_kernel(dev):
+    sk = _fr(dev)
+    sk[:, 0] = 0
+    bits = fr.to_bits(sk, 254)
+    bx, by = _fr(dev), _fr(dev)       # any field elements: same formulas
+    for a, b in zip(cuda_babyjubjub.ladder(bits, bx, by),
+                    cuda_babyjubjub.ladder_plain(bits, bx, by)):
+        _same(a, b)
+    x, y = bjj.base8_mul(sk[:, :1])              # sk = 0: the identity
+    assert (fr.batch_from_limbs(x), fr.batch_from_limbs(y)) == ([0], [1])
+
+
+def test_wrappers_reject_wrong_dtype(dev):
+    words = torch.zeros((16, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        cuda_sha2.sha2_32_chunks(words)

@@ -1,0 +1,88 @@
+"""The port's SHA-224/256 against hashlib and the JAX package.
+
+The JAX SHA path is slow-tier on the CPU (XLA compile of the scanned
+compression), so the fast tests hold the port's plain version against the
+oracle the JAX tests use, hashlib, and against the JAX package's host-side
+padding; a slow-tier test runs the live JAX function on the same words.
+"""
+
+import hashlib
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from passport_zk_circuits_tpu.ops import sha2 as jsha2
+from passport_zk_circuits_tpu_torch.ops import bignum as bn
+from passport_zk_circuits_tpu_torch.ops import cuda_sha2
+from passport_zk_circuits_tpu_torch.ops import sha2
+
+torch.set_num_threads(1)
+
+rng = random.Random(2202)
+
+
+def _batch(msgs):
+    """Equal-block-count messages -> (16 nb, B) padded word tensor."""
+    return bn.to_tensor(np.stack(
+        [sha2.bytes_to_words32(sha2.pad_message(m, 512)) for m in msgs],
+        axis=-1), "cpu")
+
+
+def _digests(words):
+    return [b"".join(int(v).to_bytes(4, "big") for v in col)
+            for col in words.T.tolist()]
+
+
+def test_padding_matches_jax():
+    for n in (0, 1, 55, 56, 63, 64, 119, 200):
+        m = bytes(rng.randrange(256) for _ in range(n))
+        for block in (512, 1024):
+            assert sha2.pad_message(m, block) == jsha2.pad_message(m, block)
+        np.testing.assert_array_equal(
+            sha2.bytes_to_words32(sha2.pad_message(m, 512)),
+            jsha2.bytes_to_words32(jsha2.pad_message(m, 512)))
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+def test_sha256_sha224_match_hashlib(nb):
+    msgs = [bytes(rng.randrange(256) for _ in range(64 * nb - 9 - j))
+            for j in range(4)]
+    words = _batch(msgs)
+    assert (words >= 1 << 31).any()
+    assert _digests(sha2.sha256_chunks(words)) == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    assert _digests(sha2.sha_hash_chunks(words, 224)) == \
+        [hashlib.sha224(m).digest() for m in msgs]
+
+
+def test_batch_dims_and_wrapper_contract():
+    msgs = [bytes([i]) * 10 for i in range(6)]
+    words = _batch(msgs)
+    out = sha2.sha256_chunks(words.reshape(16, 2, 3))
+    assert out.shape == (8, 2, 3)
+    torch.testing.assert_close(out.reshape(8, 6), sha2.sha256_chunks(words),
+                               rtol=0, atol=0)
+    # on a CPU tensor the wrapper takes the plain version, and counts no
+    # kernel launch
+    before = cuda_sha2.sha2_32_chunks.launches
+    torch.testing.assert_close(cuda_sha2.sha2_32_chunks(words),
+                               cuda_sha2.sha2_32_chunks_plain(words),
+                               rtol=0, atol=0)
+    assert cuda_sha2.sha2_32_chunks.launches == before
+    with pytest.raises(ValueError):
+        cuda_sha2.sha2_32_chunks(words, 512)
+    for algo in (160, 384, 512):
+        with pytest.raises(NotImplementedError):
+            sha2.sha_hash_chunks(words, algo)
+
+
+@pytest.mark.slow
+def test_sha256_matches_live_jax():
+    msgs = [bytes(rng.randrange(256) for _ in range(100)) for _ in range(3)]
+    words_np = np.stack([jsha2.bytes_to_words32(jsha2.pad_message(m, 512))
+                         for m in msgs], axis=-1)
+    np.testing.assert_array_equal(
+        sha2.sha256_chunks(bn.to_tensor(words_np, "cpu")).numpy(),
+        np.asarray(jsha2.sha256_chunks(words_np)))
