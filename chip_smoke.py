@@ -3,24 +3,36 @@
 
     python3 chip_smoke.py          # from the repository root
 
-The main path is one batched RegisterIdentity witness step on the flagship
-config registerIdentity_1_256_3_4_600_248_1_1496_3_256 (RSA-2048 PKCS#1
-v1.5, e = 65537, SHA-256, TD3, RSA-1024 active auth, 80-level SMT) at batch
-1024. The script
+The port's paths, each driven through its user entry point with every
+launch counter set to 0 just before it and read just after:
+
+* the witness step: one batched RegisterIdentity witness step on the
+  flagship config registerIdentity_1_256_3_4_600_248_1_1496_3_256
+  (RSA-2048 PKCS#1 v1.5, e = 65537, SHA-256, TD3, RSA-1024 active auth,
+  80-level SMT) at batch 1024: K1-K5;
+* the field-muls/s path: tools/microbench_field at batch 1024, 256
+  chained products a call: K6, K7, K8;
+* the probe battery: tools/probe_nvcc: K9.
+
+The script
 
 1. fails unless a CUDA device is present (there is no CPU path);
 2. prints the card's name and power limit (nvidia-smi);
-3. builds the five hand-written kernels from csrc/ (nvcc, sm_90a);
-4. runs each kernel at the flagship shapes and holds it bit for bit
+3. builds the nine hand-written kernels from csrc/ (nvcc, sm_90a, one
+   process per source, all at once);
+4. runs each kernel at its path's shapes and holds it bit for bit
    (tolerance 0: integer arithmetic) against its plain PyTorch version on
    the same CUDA tensors, and on 8+ lanes against the Python-int oracles;
+   times both, and computes the kernel's bound from this run's shapes;
 5. builds flagship inputs with the port's ingest, runs
    register_identity.forward on the card, checks the four public outputs
-   against the oracles, the verdicts, two tampered lanes, and that every
-   kernel's launch counter moved during that forward;
+   against the oracles, the verdicts, two tampered lanes, and that K1-K5's
+   launch counters moved during that forward;
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
-7. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
+   (K9 must launch, every probe must pass), and prints K7's field-muls/s;
+8. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -35,24 +47,32 @@ import numpy as np
 import torch
 
 from passport_zk_circuits_tpu_torch.ingest import builder, synthetic
+from passport_zk_circuits_tpu_torch.models import params
 from passport_zk_circuits_tpu_torch.models import register_identity as ri
 from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_babyjubjub
 from passport_zk_circuits_tpu_torch.ops import cuda_build
+from passport_zk_circuits_tpu_torch.ops import cuda_field
+from passport_zk_circuits_tpu_torch.ops import cuda_loop
 from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
+from passport_zk_circuits_tpu_torch.ops import cuda_probe
 from passport_zk_circuits_tpu_torch.ops import cuda_rsa
 from passport_zk_circuits_tpu_torch.ops import cuda_sha2
 from passport_zk_circuits_tpu_torch.ops import field as fr
+from passport_zk_circuits_tpu_torch.ops import poseidon as pos
 from passport_zk_circuits_tpu_torch.ops import sha2
 from passport_zk_circuits_tpu_torch.ops import smt
-from passport_zk_circuits_tpu_torch.shared import babyjubjub_ref as bref
-from passport_zk_circuits_tpu_torch.shared import params
-from passport_zk_circuits_tpu_torch.shared import poseidon_ref as pref
+from passport_zk_circuits_tpu_torch.tools import microbench_field
+from passport_zk_circuits_tpu_torch.tools import probe_nvcc
+from passport_zk_circuits_tpu_torch.utils import babyjubjub_ref as bref
+from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
+from passport_zk_circuits_tpu_torch.utils import profiling
 
 FLAGSHIP = "registerIdentity_1_256_3_4_600_248_1_1496_3_256"
 BATCH = 1024
 CHAINED_STEPS = 3
+SCAN_LEN = 256                  # products per call on the field-muls/s path
 SEED = 1
 
 # name -> (wrapper, kernel source, TPU kernel's pallas_call it replaces)
@@ -72,7 +92,68 @@ KERNELS = {
     "ladder": (cuda_babyjubjub.ladder,
                "passport_zk_circuits_tpu_torch/csrc/babyjubjub.cu",
                "passport_zk_circuits_tpu/ops/pallas_babyjubjub.py:107"),
+    "mul": (cuda_field.mul,
+            "passport_zk_circuits_tpu_torch/csrc/field.cu",
+            "passport_zk_circuits_tpu/ops/pallas_field.py:260"),
+    "mul_chain": (cuda_field.mul_chain,
+                  "passport_zk_circuits_tpu_torch/csrc/field.cu",
+                  "passport_zk_circuits_tpu/ops/pallas_field.py:283"),
+    "run_loop": (cuda_loop.loop,
+                 "passport_zk_circuits_tpu_torch/csrc/loop_bench.cu",
+                 "tools/microbench_kernel.py:69"),
+    "probe": (cuda_probe.probe,
+              "passport_zk_circuits_tpu_torch/csrc/probe.cu",
+              "tools/probe_mosaic.py:38"),
 }
+WITNESS_KERNELS = ("sha2_32_chunks", "pow_mod", "poseidon_ex", "smt_climb",
+                   "ladder")
+FIELD_KERNELS = ("mul", "mul_chain", "run_loop")
+
+# -- the least time the card could take (bound_ms) ---------------------------
+# The larger of the bytes a kernel must move (each int64 input read once,
+# each output written once) over HBM3's 3.35 TB/s, and its 32-bit integer
+# instructions over 64 a clock per SM (compute capability 9.0) x the SMs x
+# the SM clock nvidia-smi reports as clocks.max.sm; mma.sync int8 products
+# over the 1979 TOP/s int8 tensor-core peak (NVIDIA H100 SXM data sheet).
+# Instruction counts are the least the function needs, not those of the
+# code as written:
+HBM_BYTES_PER_S = 3.35e12
+INT8_MMA_OPS_PER_S = 1979e12
+INT_OPS_PER_CLOCK_PER_SM = 64
+CARD = {}                       # int_ops_per_s, filled in by main()
+OPS_PARTIAL = 2         # a 32x32->64 partial product accumulated with its
+                        # carries: mad.lo.cc + madc.hi.cc
+OPS_MONT_MUL = 128 * OPS_PARTIAL + 8 + 16   # CIOS: 64 a*b and 64 m*p
+                                            # partials, 8 low m = t0*inv;
+                                            # final subtract and select
+OPS_FR_ADD = 24         # fr::add / sub: 8 add-with-carry, 8 subtract, select
+OPS_SHA_BLOCK = 64 * 15 + 48 * 10       # 64 rounds, 48 schedule words
+OPS_LADDER_STEP = 22 * OPS_MONT_MUL + 14 * OPS_FR_ADD  # two point additions
+
+
+def bound(nbytes, int_ops, mma_ops=0):
+    """(bound_ms, bound_by) for a kernel's bytes and operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (int_ops / CARD["int_ops_per_s"] +
+             mma_ops / INT8_MMA_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def poseidon_ops(t, n_outs=1):
+    """int32 instructions of one K3 permutation per lane, with the entry
+    and exit conversions (csrc/poseidon.cuh)."""
+    nP = pos.N_ROUNDS_P[t - 2]
+    muls = 8 * (3 * t + t * t) + nP * (2 * t + 2) + t + n_outs
+    adds = t + 7 * t * t + t * (t - 1) + nP * (2 * t - 1)
+    return muls * OPS_MONT_MUL + adds * OPS_FR_ADD
+
+
+def mulmod_ops(K):
+    """int32 instructions of one K2 Barrett mulmod on K-word numbers
+    (csrc/bignum.cuh): x*y, q1*mu, the low K+1 words of q3*n."""
+    partials = K * K + (K + 1) * (K + 1) + K + K * (K + 1) // 2
+    return partials * OPS_PARTIAL + 9 * (K + 1)
 
 
 def check(cond, what):
@@ -95,7 +176,8 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kernel_fn, plain_fn, reps=10):
+def compare(name, kernel_fn, plain_fn, nbytes, int_ops, reps=10,
+            mma_ops=0):
     """Run kernel and plain version on the same CUDA inputs; they must be
     bit-equal. Returns (kernel outputs, JSON entry without launches)."""
     k_out, p_out = kernel_fn(), plain_fn()
@@ -107,10 +189,13 @@ def compare(name, kernel_fn, plain_fn, reps=10):
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, 1)
     _, source, replaces = KERNELS[name]
-    print(f"  {name}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+    bound_ms, bound_by = bound(nbytes, int_ops, mma_ops)
+    print(f"  {name}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+          f"ms, bound {bound_ms:.6f} ms ({bound_by})")
     return k_out, {"name": name, "route": "cuda", "source": source,
                    "replaces": replaces, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms}
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
 
 
 def words_to_bytes(col) -> bytes:
@@ -132,7 +217,9 @@ def phase_sha(dev, rng):
     outs, entry = compare(
         "sha2_32_chunks",
         lambda: torch.cat([cuda_sha2.sha2_32_chunks(w) for w in step]),
-        lambda: torch.cat([cuda_sha2.sha2_32_chunks_plain(w) for w in step]))
+        lambda: torch.cat([cuda_sha2.sha2_32_chunks_plain(w) for w in step]),
+        nbytes=8 * sum(w.numel() + 8 * BATCH for w in step),
+        int_ops=sum(w.shape[0] // 16 for w in step) * OPS_SHA_BLOCK * BATCH)
     digests = outs[0].reshape(4, 8, BATCH)
     for i, nb in enumerate((2, 3, 4)):
         for lane in range(0, BATCH, BATCH // 8):
@@ -166,7 +253,10 @@ def phase_rsa(dev, rng):
     sigs, mods, args = _rsa_case(dev, rng, 128, 65537)
     outs, entry = compare("pow_mod",
                           lambda: cuda_rsa.pow_mod(*args, 65537),
-                          lambda: cuda_rsa.pow_mod_plain(*args, 65537))
+                          lambda: cuda_rsa.pow_mod_plain(*args, 65537),
+                          nbytes=8 * (sum(a.numel() for a in args)
+                                      + 128 * BATCH),
+                          int_ops=17 * mulmod_ops(64) * BATCH)
     got = bn.limbs_to_ints_batch(outs[0][:, :8])
     check(got == [pow(s, 65537, m) for s, m in zip(sigs[:8], mods[:8])],
           "pow_mod k=128 != pow()")
@@ -200,7 +290,10 @@ def phase_poseidon(dev, rng):
         lambda: torch.cat([cuda_poseidon.poseidon_ex(cases[t][1])
                            for t in step], 1),
         lambda: torch.cat([cuda_poseidon.poseidon_ex_plain(cases[t][1])
-                           for t in step], 1))
+                           for t in step], 1),
+        nbytes=sum(8 * 16 * (t + 1) * BATCH
+                   + 4 * cuda_poseidon._pack(t, dev).numel() for t in step),
+        int_ops=sum(poseidon_ops(t) for t in step) * BATCH)
     for j, t in enumerate(step):
         got = fr.batch_from_limbs(outs[0][:, j, :8])
         cols = cases[t][0]
@@ -238,7 +331,11 @@ def phase_smt(dev, rng):
     outs, entry = compare("smt_climb",
                           lambda: cuda_poseidon.smt_climb(*args),
                           lambda: cuda_poseidon.smt_climb_plain(*args),
-                          reps=3)
+                          nbytes=8 * (sum(a.numel() for a in args)
+                                      + 2 * 16 * BATCH),
+                          int_ops=(n * (poseidon_ops(3) + OPS_MONT_MUL)
+                                   + poseidon_ops(4) + 2 * OPS_MONT_MUL)
+                          * BATCH, reps=3)
     lanes = [0, 1] + list(range(9, BATCH, BATCH // 8))      # 1 mod 8: deep
     got = fr.batch_from_limbs(outs[0][:, lanes])
     want = [smt_path_root(keys[i], vals[i], sib_cols[i]) for i in lanes]
@@ -259,7 +356,9 @@ def phase_ladder(dev, rng):
     outs, entry = compare("ladder",
                           lambda: cuda_babyjubjub.ladder(bits, bx, by),
                           lambda: cuda_babyjubjub.ladder_plain(bits, bx, by),
-                          reps=3)
+                          nbytes=8 * (bits.numel() + 6 * 16 * BATCH),
+                          int_ops=(254 * OPS_LADDER_STEP + 10 * OPS_MONT_MUL)
+                          * BATCH, reps=3)
     ax, ay = bjj.to_affine(tuple(outs))
     lanes = list(range(8))
     got = list(zip(fr.batch_from_limbs(ax[:, lanes]),
@@ -267,6 +366,122 @@ def phase_ladder(dev, rng):
     check(got == [bref.base8_mul(sks[i] % (1 << 254)) for i in lanes],
           "ladder != babyjubjub oracle")
     entry["shape"] = "254 bits, B=1024"
+    return entry
+
+
+def _edge_lanes(dev, rng):
+    """(ints, (16, B) limbs): lanes 0-4 are 0, 1, P-1, P and 2^256-1 (the
+    kernels take any value below 2^256), the rest random 256-bit values."""
+    xs = [0, 1, fr.P - 1, fr.P, (1 << 256) - 1]
+    xs += [rng.getrandbits(256) for _ in range(BATCH - len(xs))]
+    return xs, bn.to_tensor(bn.ints_to_limbs_batch(xs, 16), dev)
+
+
+def phase_field(dev, rng):
+    """K6 on (16, B) x (16, B) with edge lanes, and with a broadcast
+    (16, 1) column; K7 at n = 256 (the field-muls/s shape), n = 0 (a
+    unchanged) and n = 5."""
+    xs, a = _edge_lanes(dev, rng)
+    ys, b = _edge_lanes(dev, rng)
+    ys, b = ys[::-1], b.flip(1).contiguous()
+    # two products a lane: mont(to_mont(a), b) = a*b mod P for any
+    # b < 2^256, since a*R mod P < P
+    outs, e6 = compare("mul", lambda: cuda_field.mul(a, b),
+                       lambda: cuda_field.mul_plain(a, b),
+                       nbytes=8 * 3 * 16 * BATCH,
+                       int_ops=2 * OPS_MONT_MUL * BATCH)
+    lanes = list(range(5)) + list(range(5, BATCH, BATCH // 8))
+    check(fr.batch_from_limbs(outs[0][:, lanes]) ==
+          [xs[i] * ys[i] % fr.P for i in lanes], "K6 != Python ints")
+    c = b[:, 5:6]
+    check(torch.equal(cuda_field.mul(a, c), cuda_field.mul_plain(a, c)),
+          "K6 broadcast != plain")
+    c = bn.to_tensor(fr.to_limbs(microbench_field.C)[:, None], dev)
+    cv = microbench_field.C
+    # n products a lane, x kept out of Montgomery form against
+    # to_mont(c), computed once for the broadcast column
+    outs, e7 = compare(
+        "mul_chain", lambda: cuda_field.mul_chain(a, c, SCAN_LEN),
+        lambda: cuda_field.mul_chain_plain(a, c, SCAN_LEN),
+        nbytes=8 * (2 * 16 * BATCH + 16),
+        int_ops=(SCAN_LEN * BATCH + 1) * OPS_MONT_MUL)
+    check(fr.batch_from_limbs(outs[0][:, lanes]) ==
+          [xs[i] * pow(cv, SCAN_LEN, fr.P) % fr.P for i in lanes],
+          "K7 n=256 != Python ints")
+    check(torch.equal(cuda_field.mul_chain(a, c, 0), a), "K7 n=0 != a")
+    out5 = cuda_field.mul_chain(a, b, 5)
+    check(torch.equal(out5, cuda_field.mul_chain_plain(a, b, 5)),
+          "K7 n=5 != plain")
+    check(fr.batch_from_limbs(out5[:, lanes]) ==
+          [xs[i] * pow(ys[i], 5, fr.P) % fr.P for i in lanes],
+          "K7 n=5 != Python ints")
+    e6["shape"] = "(16, 1024) x (16, 1024), edge lanes 0, 1, P-1, P, 2^256-1"
+    e7["shape"] = "n=256, (16, 1024) x (16, 1) column"
+    return [e6, e7]
+
+
+def phase_loop(dev, rng):
+    """K8: every body at B = 1024 against its plain version and on 8 lanes
+    against Python ints; timed on the field-muls/s path's shape, the raw
+    u32 chain of 256 x 16 steps."""
+    a = bn.to_tensor(np.array([[rng.randrange(1 << 16) for _ in range(BATCH)]
+                               for _ in range(16)]), dev)
+    c = bn.to_tensor(np.array([[rng.randrange(1, 1 << 16)
+                                for _ in range(BATCH)] for _ in range(16)]),
+                     dev)
+    lanes = list(range(0, BATCH, BATCH // 8))
+    a_ints = bn.limbs_to_ints_batch(a[:, lanes])
+    c_ints = bn.limbs_to_ints_batch(c[:, lanes])
+    n = 64
+    for body in cuda_loop.BODIES:
+        out = cuda_loop.loop(body, a, c, n)
+        check(torch.equal(out, cuda_loop.loop_plain(body, a, c, n)),
+              f"K8 {body}: kernel != plain")
+        check(bn.limbs_to_ints_batch(out[:, lanes]) ==
+              [cuda_loop.body_ints(body, x, y, n)
+               for x, y in zip(a_ints, c_ints)],
+              f"K8 {body} != Python ints")
+    n = SCAN_LEN * 16
+    raw_c = torch.full_like(a, microbench_field.RAW_C)
+    _, entry = compare("run_loop",
+                       lambda: cuda_loop.loop("u32_mul_add", a, raw_c, n),
+                       lambda: cuda_loop.loop_plain("u32_mul_add", a, raw_c,
+                                                    n),
+                       nbytes=8 * 3 * 16 * BATCH,
+                       int_ops=2 * n * 16 * BATCH, reps=3)
+    entry["shape"] = "u32_mul_add, n=4096, (16, 1024)"
+    return entry
+
+
+def phase_probe(dev, rng):
+    """K9: the battery through its entry point (tools/probe_nvcc), every
+    probe must pass and the probe counter must move; then the kernel
+    probes (less the refused launch) timed as one battery."""
+    reset_launches()
+    results = probe_nvcc.run_all(dev)
+    failed = {k: v for k, v in results.items() if v}
+    check(not failed, f"probes failed: {failed}")
+    launches = cuda_probe.probe.launches
+    check(launches > 0, "probe battery launched no K9 kernel")
+    names = [n for n in cuda_probe.KERNEL_PROBES if n != "refused_launch"]
+    ins = {n: cuda_probe.inputs(n, dev) for n in names}
+    outs = {n: cuda_probe.plain(n, i0, i1) for n, (i0, i1) in ins.items()}
+    nbytes = 8 * sum(sum(x.numel() for x in (i0, i1) if x is not None)
+                     + outs[n].numel() for n, (i0, i1) in ins.items())
+    int_ops = (4 * ins["basic"][0].numel() + 3 * ins["mul_wide"][0].numel()
+               + 17 * 5 * ins["shfl_carry"][0].numel())
+    mma_ops = 2 * 16 * 8 * 32 * cuda_probe.MMA_TILES
+    _, entry = compare(
+        "probe",
+        lambda: torch.cat([cuda_probe.probe(n, i0, i1).reshape(-1)
+                           for n, (i0, i1) in ins.items()]),
+        lambda: torch.cat([cuda_probe.plain(n, i0, i1).reshape(-1)
+                           for n, (i0, i1) in ins.items()]),
+        nbytes=nbytes, int_ops=int_ops, mma_ops=mma_ops)
+    entry["launches"] = launches
+    entry["shape"] = (f"{len(results)} probes; timed: {len(names)} kernel "
+                      "probes, one launch each")
+    print(f"  probes passed: {', '.join(results)}")
     return entry
 
 
@@ -290,6 +505,18 @@ def reset_launches():
         fn.launches = 0
 
 
+def read_launches(names, entries, path):
+    """Check that each kernel in names launched on the path just run, and
+    record its count in its JSON entry."""
+    launches = {name: KERNELS[name][0].launches for name in names}
+    print(f"  {path}: launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by {path}")
+    for e in entries:
+        if e["name"] in launches:
+            e["launches"] = launches[e["name"]]
+
+
 def phase_slice(dev, rng, entries):
     p = params.CircuitParams.from_name(FLAGSHIP)
     t0 = time.perf_counter()
@@ -303,13 +530,8 @@ def phase_slice(dev, rng, entries):
     out = ri.forward(p, inp)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
-    print(f"  forward: {first_s * 1e3:.1f} ms (first call); launches "
-          f"{launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the forward")
-    for e in entries:
-        e["launches"] = launches[e["name"]]
+    print(f"  forward: {first_s * 1e3:.1f} ms (first call)")
+    read_launches(WITNESS_KERNELS, entries, "the witness step")
 
     flow, sig, smt_ok = (out[k].cpu() for k in ("flow_ok", "sig_ok",
                                                 "smt_ok"))
@@ -351,6 +573,34 @@ def chained_steps(p, inp):
     return dt
 
 
+def field_path(dev, entries):
+    """The field-muls/s path through its entry point; returns K7's
+    field-muls/s."""
+    torch.cuda.synchronize()
+    reset_launches()
+    res = microbench_field.run(dev, BATCH, SCAN_LEN)
+    torch.cuda.synchronize()
+    read_launches(FIELD_KERNELS, entries, "the field-muls/s path")
+    microbench_field.report(res, BATCH, SCAN_LEN)
+    return microbench_field.field_muls_per_s(res["k7_fused"], BATCH,
+                                             SCAN_LEN)
+
+
+def card_rates(card):
+    """Fill CARD with the card's 32-bit integer instruction rate."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["int_ops_per_s"] = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    print(f"bound model: {sms} SMs x {mhz:.0f} MHz (clocks.max.sm) x "
+          f"{INT_OPS_PER_CLOCK_PER_SM} int32 ops/clock = "
+          f"{CARD['int_ops_per_s']:.4g} int32 ops/s; HBM "
+          f"{HBM_BYTES_PER_S:.3g} B/s; card: {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -364,6 +614,7 @@ def main():
     dev = torch.device("cuda:0")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    card_rates(card)
 
     t0 = time.perf_counter()
     cuda_build.library()
@@ -373,15 +624,26 @@ def main():
     rng = random.Random(SEED)
     entries = []
     for phase in (phase_sha, phase_rsa, phase_poseidon, phase_smt,
-                  phase_ladder):
+                  phase_ladder, phase_field, phase_loop, phase_probe):
         print(f"phase {phase.__name__}")
-        entries.append(phase(dev, rng))
+        got = phase(dev, rng)
+        entries.extend(got if isinstance(got, list) else [got])
 
     print("phase slice")
     p, inp = phase_slice(dev, rng, entries)
     dt = chained_steps(p, inp)
     print(f"chained step: {dt * 1e3:.1f} ms/step, {BATCH / dt:.1f} "
           f"witnesses/s, batch {BATCH}, {CHAINED_STEPS} steps; card: {card}")
+
+    print("path field-muls/s")
+    rate = field_path(dev, entries)
+    print(f"BN254 field-muls/s (K7, batch {BATCH}, n {SCAN_LEN}): {rate:.6g};"
+          f" witness-equivalent (cost-model estimate: field_mul_cost "
+          f"{profiling.field_mul_cost(p)} x {BATCH / dt:.1f} witnesses/s): "
+          f"{profiling.witnesses_to_field_muls(p, BATCH / dt):.6g} "
+          f"field-muls/s; card: {card}")
+    check(len(entries) == len(KERNELS) and
+          all("launches" in e for e in entries), "a kernel has no launches")
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ from ..ops import bignum as bn
 from ..ops import field as fr
 from ..ops import sha2
 from . import convert
-from ..shared import params
+from ..models import params
 
 
 def _padded_words(blobs, block_bits: int, n_blocks: int) -> np.ndarray:

@@ -3,9 +3,9 @@
 Counterpart of ``passport_zk_circuits_tpu/ingest/synthetic.py`` for the RSA
 PKCS#1 v1.5 family with RSA or no active authentication. Given the same
 ``random.Random`` state it draws the same numbers in the same order, so it
-makes the same passports as the JAX package. Of the JAX package it uses
-only the pure-Python modules that ``shared`` names (params, the Poseidon
-and BabyJubJub oracles, RSA key generation). RSA-PSS, ECDSA and ECDSA
+makes the same passports as the JAX package. It uses the port's own copies
+of the parameter registry, the Poseidon and BabyJubJub oracles and RSA key
+generation (``models/params``, ``utils/*``). RSA-PSS, ECDSA and ECDSA
 active authentication are still to port (ROADMAP queue 1) and raise.
 """
 
@@ -15,10 +15,10 @@ import hashlib
 import random
 
 from ..ops import rsa as rsa_ops
-from ..shared import babyjubjub_ref as bref
-from ..shared import params
-from ..shared import poseidon_ref as pref
-from ..shared import rsa_keygen
+from ..models import params
+from ..utils import babyjubjub_ref as bref
+from ..utils import poseidon_ref as pref
+from ..utils import rsa_keygen
 
 _HASH_NAME = {160: "sha1", 224: "sha224", 256: "sha256",
               384: "sha384", 512: "sha512"}

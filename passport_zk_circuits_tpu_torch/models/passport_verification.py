@@ -21,7 +21,7 @@ from ..ops import poseidon as pos
 from ..ops import rsa
 from ..ops import sha2
 from ..ops import smt
-from ..shared import params
+from . import params
 
 
 class PassportInputs(NamedTuple):

@@ -18,7 +18,7 @@ from ..ops import bitops
 from ..ops import field as fr
 from ..ops import poseidon as pos
 from . import passport_verification as pv
-from ..shared import params
+from . import params
 
 
 class RegisterIdentityInputs(NamedTuple):

@@ -2,8 +2,9 @@
 
 Takes the place of the TPU package's ``pallas_field.use_pallas`` gate: there
 is no gate here. The kernel wrappers call ``library()`` the first time a CUDA
-tensor reaches them; it compiles every ``csrc/*.cu`` with nvcc for sm_90a
-into one shared library with a plain C interface, keyed by a hash of the
+tensor reaches them; it compiles every ``csrc/*.cu`` with nvcc for sm_90a,
+one nvcc process per source, all started together, and links the objects
+once into a shared library with a plain C interface, keyed by a hash of the
 sources and the flags, under ``passport_zk_circuits_tpu_torch/_build/``, and
 loads it with ctypes. A build that fails raises; nothing falls back.
 
@@ -27,7 +28,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -36,6 +37,10 @@ _SIGNATURES = {
     "pzk_poseidon": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pzk_smt_climb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pzk_ladder": [_P, _P, _P, _P, _I, _I, _P],
+    "pzk_fr_mul": [_P, _P, _I, _P, _I, _P],
+    "pzk_fr_mul_chain": [_P, _P, _I, _P, _I, _I, _P],
+    "pzk_loop": [_I, _P, _P, _P, _I, _I, _P],
+    "pzk_probe": [_I, _P, _P, _P, _I, _P],
 }
 
 
@@ -58,22 +63,49 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds, log) -> None:
+    """Run the commands in parallel, append their output to log, and raise
+    if any failed."""
+    procs = [subprocess.Popen(c, cwd=CSRC, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
+def build(so: pathlib.Path) -> None:
+    """Compile every source at once, one nvcc each, then link them into
+    so; the objects and build.log go next to so."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [so.parent / f"{tag}.{f.stem}.o" for f in sources]
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    log = []
+    try:
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                  for f, o in zip(sources, objs)], log)
+        _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *[str(o) for o in objs]]], log)
+    finally:
+        (so.parent / "build.log").write_text("\n".join(log))
+        for o in objs:
+            o.unlink(missing_ok=True)
+    os.replace(tmp, so)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     so = BUILD_DIR / f"libpzk_kernels_{_key()}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, cwd=CSRC, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
+        build(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

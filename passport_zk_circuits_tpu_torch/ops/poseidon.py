@@ -3,7 +3,7 @@
 Counterpart of ``passport_zk_circuits_tpu/ops/poseidon.py``: the optimized
 circomlib schedule (8 full rounds around nP partial rounds, the sparse P
 pre-matrix and the per-round s0 row / s1 column maps), with the constants of
-``passport_zk_circuits_tpu/utils/constants/poseidon_bn254.npz``.
+the port's copy of ``utils/constants/poseidon_bn254.npz``.
 
 The plain version keeps the state as one (16, t, B) tensor: every S-box layer
 is three batched modmuls, and every linear layer, the MDS mix as much as a
@@ -24,8 +24,7 @@ from . import field as fr
 
 N_ROUNDS_P = [56, 57, 56, 60, 60, 63, 64, 63, 60, 66, 60, 65, 70, 60, 64, 68]
 
-NPZ = (pathlib.Path(__file__).resolve().parent.parent.parent
-       / "passport_zk_circuits_tpu" / "utils" / "constants"
+NPZ = (pathlib.Path(__file__).resolve().parent.parent / "utils" / "constants"
        / "poseidon_bn254.npz")
 
 

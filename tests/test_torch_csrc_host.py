@@ -23,6 +23,7 @@ import torch
 
 from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
+from passport_zk_circuits_tpu_torch.ops import cuda_loop
 from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
 from passport_zk_circuits_tpu_torch.ops import field as fr
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
@@ -147,3 +148,22 @@ def test_ladder_step(lib, bit):
             fr.batch_from_limbs(want_acc[i])[0]
         assert _int(base_np[16 * i:16 * i + 16]) == \
             fr.batch_from_limbs(want_base[i])[0]
+
+
+@pytest.mark.parametrize("body", cuda_loop.BODIES)
+def test_loop_body(lib, body):
+    """Each K8 body, compiled by g++, against its plain PyTorch version and
+    the Python-int oracle, on lanes that include 0, P, 2^256 - 1 and random
+    values (most of them >= P)."""
+    n = 3
+    xs = [0, fr.P, (1 << 256) - 1] + [rng.getrandbits(256) for _ in range(3)]
+    cs = [(1 << 256) - 1, fr.P - 1, fr.P + 5] + [rng.getrandbits(256)
+                                                 for _ in range(3)]
+    a, c = _t(xs), _t(cs)
+    plain = cuda_loop.loop_plain(body, a, c, n)
+    for lane, (x, y) in enumerate(zip(xs, cs)):
+        out = np.zeros(16, np.int64)
+        assert lib.host_loop(cuda_loop.BODIES.index(body), _ptr(_limbs(x)),
+                             _ptr(_limbs(y)), n, _ptr(out)) == 0
+        assert _int(out) == _int(plain[:, lane]) == \
+            cuda_loop.body_ints(body, x, y, n)

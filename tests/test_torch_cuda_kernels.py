@@ -1,6 +1,6 @@
-"""The five hand-written kernels on the card, each against its plain PyTorch
-version on the same CUDA tensors (bit for bit: tolerance 0), at small and
-ragged batches. Needs a CUDA device and skips without one. The machine with
+"""The nine hand-written kernels on the card, each against its plain
+PyTorch version on the same CUDA tensors (bit for bit: tolerance 0), at
+small and ragged batches, and the K9 probe battery probe by probe. Needs a CUDA device and skips without one. The machine with
 the card has no JAX, so run these without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from passport_zk_circuits_tpu.utils import poseidon_ref as pref
+from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_babyjubjub
+from passport_zk_circuits_tpu_torch.ops import cuda_field
+from passport_zk_circuits_tpu_torch.ops import cuda_loop
 from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
+from passport_zk_circuits_tpu_torch.ops import cuda_probe
 from passport_zk_circuits_tpu_torch.ops import cuda_rsa
 from passport_zk_circuits_tpu_torch.ops import cuda_sha2
 from passport_zk_circuits_tpu_torch.ops import field as fr
@@ -121,3 +124,53 @@ def test_wrappers_reject_wrong_dtype(dev):
     words = torch.zeros((16, 4), dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         cuda_sha2.sha2_32_chunks(words)
+
+
+def _wide(dev, n=B):
+    """n lanes of 256-bit values, the first five 0, 1, P-1, P, 2^256-1."""
+    xs = [0, 1, fr.P - 1, fr.P, (1 << 256) - 1]
+    xs += [rng.getrandbits(256) for _ in range(n - len(xs))]
+    return xs, bn.to_tensor(bn.ints_to_limbs_batch(xs, 16), dev)
+
+
+@pytest.mark.parametrize("bcast", [False, True])
+def test_field_mul_kernel(dev, bcast):
+    xs, a = _wide(dev)
+    ys, b = _wide(dev)
+    b = b.flip(1)[:, :1] if bcast else b.flip(1)
+    ys = ys[::-1][:1] * B if bcast else ys[::-1]
+    before = cuda_field.mul.launches
+    out = cuda_field.mul(a, b)
+    assert cuda_field.mul.launches == before + 1
+    _same(out, cuda_field.mul_plain(a, b))
+    assert fr.batch_from_limbs(out) == [x * y % fr.P for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 256])
+@pytest.mark.parametrize("bcast", [False, True])
+def test_field_mul_chain_kernel(dev, n, bcast):
+    xs, a = _wide(dev)
+    ys, c = _wide(dev)
+    if bcast:
+        ys, c = ys[5:6] * B, c[:, 5:6]
+    out = cuda_field.mul_chain(a, c, n)
+    _same(out, cuda_field.mul_chain_plain(a, c, n))
+    want = xs if n == 0 else [x * pow(y, n, fr.P) % fr.P
+                              for x, y in zip(xs, ys)]
+    assert bn.limbs_to_ints_batch(out) == want
+
+
+@pytest.mark.parametrize("body", cuda_loop.BODIES)
+def test_loop_kernel_every_body(dev, body):
+    a = torch.tensor(np.array([[rng.randrange(1 << 16) for _ in range(B)]
+                               for _ in range(16)]), device=dev)
+    c = torch.tensor(np.array([[rng.randrange(1, 1 << 16) for _ in range(B)]
+                               for _ in range(16)]), device=dev)
+    for n in (1, 7):
+        _same(cuda_loop.loop(body, a, c, n),
+              cuda_loop.loop_plain(body, a, c, n))
+
+
+@pytest.mark.parametrize("name", cuda_probe.PROBES)
+def test_probe(dev, name):
+    cuda_probe.run(name, dev)

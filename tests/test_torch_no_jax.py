@@ -1,49 +1,90 @@
-"""The port runs where JAX is absent (as on the machine with the card).
+"""The port stands alone: it runs where JAX and the JAX package are absent
+(as on the machine with the card).
 
-A subprocess blocks ``import jax`` (``sys.modules["jax"] = None`` makes
-every import of it raise), imports every module of the port and
-``chip_smoke.py``, and runs a small plain op of each kind.
+A subprocess, started in a temporary directory that holds only a copy of
+the port (without its build directory) and ``chip_smoke.py``, blocks both
+``import jax`` and ``import passport_zk_circuits_tpu`` (a ``None`` entry
+in ``sys.modules`` makes every import of it raise), imports every module
+of the port and ``chip_smoke.py``, and runs a small plain op of each kind.
+No file of the JAX package is there to be opened. An AST check refuses
+any import of either package in the port's sources and in
+``chip_smoke.py``.
 """
 
+import ast
 import pathlib
+import shutil
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "passport_zk_circuits_tpu_torch"
 
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["passport_zk_circuits_tpu"] = None
 import passport_zk_circuits_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 import torch
-from passport_zk_circuits_tpu_torch.ops import bignum as bn, field as fr, poseidon as pos, sha2
+from passport_zk_circuits_tpu_torch.ops import bignum as bn, cuda_field, cuda_loop, cuda_probe, field as fr, poseidon as pos, sha2
+from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 a = bn.to_tensor(fr.batch_to_limbs([3, 5]), "cpu")
 assert fr.batch_from_limbs(fr.mul(a, a)) == [9, 25]
+assert fr.batch_from_limbs(cuda_field.mul_chain(a, a[:, :1], 2)) == [27, 45]
+assert cuda_loop.loop("modmul_mont32", a, a, 1).shape == (16, 2)
+cuda_probe.run("mma_s8", "cpu")
 assert sha2.sha256_chunks(bn.to_tensor(sha2.bytes_to_words32(
     sha2.pad_message(b"abc", 512))[:, None], "cpu")).shape == (8, 1)
-assert pos.poseidon([a]).shape == (16, 2)
-assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
+assert fr.batch_from_limbs(pos.poseidon([a])) == [pref.poseidon([3]), pref.poseidon([5])]
+bad = [m for m, v in sys.modules.items() if v is not None and
+       (m.split(".")[0] in ("jax", "passport_zk_circuits_tpu"))]
+assert not bad, bad
 print("modules", len(names))
 """
 
 
-def test_chip_smoke_imports_only_the_port():
-    import ast
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
     mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
             for a in n.names}
     mods |= {n.module for n in ast.walk(tree)
-             if isinstance(n, ast.ImportFrom)}
-    assert not any(m.split(".")[0] in ("jax", "passport_zk_circuits_tpu")
-                   for m in mods), mods
+             if isinstance(n, ast.ImportFrom) and n.module}
+    return mods
 
 
-def test_port_imports_and_runs_without_jax():
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+def _forbidden(mod: str) -> bool:
+    return any(mod == p or mod.startswith(p + ".")
+               for p in ("jax", "passport_zk_circuits_tpu"))
+
+
+@pytest.mark.parametrize("mod,refused", [
+    ("jax", True), ("jax.numpy", True), ("passport_zk_circuits_tpu", True),
+    ("passport_zk_circuits_tpu.utils.poseidon_ref", True),
+    ("passport_zk_circuits_tpu_torch.utils.poseidon_ref", False),
+    ("torch", False)])
+def test_forbidden_names(mod, refused):
+    assert _forbidden(mod) == refused
+
+
+def test_chip_smoke_imports_only_the_port():
+    files = [ROOT / "chip_smoke.py", *sorted(PORT.rglob("*.py"))]
+    bad = {str(f.relative_to(ROOT)): sorted(m for m in _imported_modules(f)
+                                            if _forbidden(m))
+           for f in files}
+    assert not {f: m for f, m in bad.items() if m}
+
+
+def test_port_imports_and_runs_without_jax(tmp_path):
+    shutil.copytree(PORT, tmp_path / PORT.name,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=tmp_path,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "modules" in proc.stdout

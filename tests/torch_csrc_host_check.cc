@@ -8,6 +8,7 @@
 #include "babyjubjub.cuh"
 #include "bignum.cuh"
 #include "fr_bn254.cuh"
+#include "loop_bodies.cuh"
 #include "poseidon.cuh"
 #include "sha256.cuh"
 
@@ -80,6 +81,22 @@ void host_ladder_step(int64_t* acc, int64_t* base, int bit) {
     store(*pf[i], acc + 16 * i);
     store(*qf[i], base + 16 * i);
   }
+}
+
+// n_iter steps of K8's body number `body` (csrc/loop_bodies.cuh) on one
+// lane; a, c, out: 16 limbs. Returns -1 for an unknown body.
+int host_loop(int body, const int64_t* a, const int64_t* c, int n_iter,
+              int64_t* out) {
+  switch (body) {
+#define HOST_LOOP_CASE(id, T)                                          \
+  case id:                                                             \
+    loopb::store16(loopb::run<loopb::T>(loopb::load16(a, 1),           \
+                                        loopb::load16(c, 1), n_iter),  \
+                   out, 1);                                            \
+    return 0;
+    PZK_LOOP_BODIES(HOST_LOOP_CASE)
+  }
+  return -1;
 }
 
 }  // extern "C"
