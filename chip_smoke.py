@@ -9,7 +9,7 @@ launch counter set to 0 just before it and read just after:
 * the witness step: one batched RegisterIdentity witness step on the
   flagship config registerIdentity_1_256_3_4_600_248_1_1496_3_256
   (RSA-2048 PKCS#1 v1.5, e = 65537, SHA-256, TD3, RSA-1024 active auth,
-  80-level SMT) at batch 1024: K1-K5;
+  80-level SMT) at batch 1024: K1-K4 and K5's affine entry;
 * the field-muls/s path: tools/microbench_field at batch 1024, 256
   chained products a call: K6, K7, K8;
 * the probe battery: tools/probe_nvcc: K9.
@@ -18,16 +18,19 @@ The script
 
 1. fails unless a CUDA device is present (there is no CPU path);
 2. prints the card's name and power limit (nvidia-smi);
-3. builds the nine hand-written kernels from csrc/ (nvcc, sm_90a, one
+3. builds the hand-written kernels from csrc/ (nvcc, sm_90a, one
    process per source, all at once);
 4. runs each kernel at its path's shapes and holds it bit for bit
    (tolerance 0: integer arithmetic) against its plain PyTorch version on
    the same CUDA tensors, and on 8+ lanes against the Python-int oracles;
-   times both, and computes the kernel's bound from this run's shapes;
+   times both, and computes the kernel's bound from this run's shapes and
+   data (K4: the live levels of three depth profiles);
 5. builds flagship inputs with the port's ingest, runs
    register_identity.forward on the card, checks the four public outputs
-   against the oracles, the verdicts, two tampered lanes, and that K1-K5's
-   launch counters moved during that forward;
+   against the oracles, the verdicts, two tampered lanes, and that the
+   launch counters of K1-K4 and of K5's affine entry moved during that
+   forward; counts the CUDA kernels of one forward (torch.profiler) and
+   times its stages;
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
@@ -48,6 +51,7 @@ import torch
 
 from passport_zk_circuits_tpu_torch.ingest import builder, synthetic
 from passport_zk_circuits_tpu_torch.models import params
+from passport_zk_circuits_tpu_torch.models import passport_verification as pv
 from passport_zk_circuits_tpu_torch.models import register_identity as ri
 from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
@@ -61,6 +65,7 @@ from passport_zk_circuits_tpu_torch.ops import cuda_rsa
 from passport_zk_circuits_tpu_torch.ops import cuda_sha2
 from passport_zk_circuits_tpu_torch.ops import field as fr
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
+from passport_zk_circuits_tpu_torch.ops import rsa
 from passport_zk_circuits_tpu_torch.ops import sha2
 from passport_zk_circuits_tpu_torch.ops import smt
 from passport_zk_circuits_tpu_torch.tools import microbench_field
@@ -92,6 +97,9 @@ KERNELS = {
     "ladder": (cuda_babyjubjub.ladder,
                "passport_zk_circuits_tpu_torch/csrc/babyjubjub.cu",
                "passport_zk_circuits_tpu/ops/pallas_babyjubjub.py:107"),
+    "ladder_affine": (cuda_babyjubjub.ladder_affine,
+                      "passport_zk_circuits_tpu_torch/csrc/babyjubjub.cu",
+                      "passport_zk_circuits_tpu/ops/pallas_babyjubjub.py:107"),
     "mul": (cuda_field.mul,
             "passport_zk_circuits_tpu_torch/csrc/field.cu",
             "passport_zk_circuits_tpu/ops/pallas_field.py:260"),
@@ -106,7 +114,7 @@ KERNELS = {
               "tools/probe_mosaic.py:38"),
 }
 WITNESS_KERNELS = ("sha2_32_chunks", "pow_mod", "poseidon_ex", "smt_climb",
-                   "ladder")
+                   "ladder_affine")
 FIELD_KERNELS = ("mul", "mul_chain", "run_loop")
 
 # -- the least time the card could take (bound_ms) ---------------------------
@@ -126,9 +134,25 @@ OPS_PARTIAL = 2         # a 32x32->64 partial product accumulated with its
 OPS_MONT_MUL = 128 * OPS_PARTIAL + 8 + 16   # CIOS: 64 a*b and 64 m*p
                                             # partials, 8 low m = t0*inv;
                                             # final subtract and select
+OPS_MONT_SQR = 100 * OPS_PARTIAL + 8 + 16 + 16  # a*a: 28 cross partials
+                                                # once, doubled (16), and 8
+                                                # squares; then as a product
+OPS_SMALL_MUL = 17 * OPS_PARTIAL + 16   # by a constant below 2^32 (the
+                                        # curve's a and d): 8 partials, a
+                                        # one-word quotient, 8 of q*P, then
+                                        # the final subtract and select
 OPS_FR_ADD = 24         # fr::add / sub: 8 add-with-carry, 8 subtract, select
 OPS_SHA_BLOCK = 64 * 15 + 48 * 10       # 64 rounds, 48 schedule words
-OPS_LADDER_STEP = 22 * OPS_MONT_MUL + 14 * OPS_FR_ADD  # two point additions
+# BabyJubJub in extended coordinates: the addition add-2008-hwcd, 9
+# products, the products by a and by d, 7 additions; the doubling
+# dbl-2008-hwcd, 4 products, 4 squarings, the product by a, 7 additions; the
+# unified addition of a point to itself, 4 products, 5 squarings, 2 by the
+# constants, 7 additions
+OPS_BJJ_ADD = 9 * OPS_MONT_MUL + 2 * OPS_SMALL_MUL + 7 * OPS_FR_ADD
+OPS_BJJ_DBL = (4 * OPS_MONT_MUL + 4 * OPS_MONT_SQR + OPS_SMALL_MUL
+               + 7 * OPS_FR_ADD)
+OPS_BJJ_DBL_UNIFIED = (4 * OPS_MONT_MUL + 5 * OPS_MONT_SQR
+                       + 2 * OPS_SMALL_MUL + 7 * OPS_FR_ADD)
 
 
 def bound(nbytes, int_ops, mma_ops=0):
@@ -156,6 +180,54 @@ def mulmod_ops(K):
     return partials * OPS_PARTIAL + 9 * (K + 1)
 
 
+def window_chain_muls(e):
+    """Products, squarings apart, of the shortest sliding-window chain for
+    x^e over window widths 1-8: the odd powers x^3 .. x^(2^w - 1) (after
+    one squaring) take 2^(w-1) - 1, each window after the first one."""
+    bits = bin(e)[2:]
+    best = None
+    for w in range(1, 9):
+        i = windows = 0
+        while i < len(bits):
+            if bits[i] == "0":
+                i += 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            windows, i = windows + 1, j
+        muls = 2 ** (w - 1) - 1 + windows - 1
+        best = muls if best is None else min(best, muls)
+    return best
+
+
+# Z^-1 = Z^(P-2): 253 squarings (and x^2 for the window's table), products
+# of the chain above: 254 squarings and 56 products for BN254's Fr
+OPS_FR_INV = ((fr.P - 2).bit_length() * OPS_MONT_SQR
+              + window_chain_muls(fr.P - 2) * OPS_MONT_MUL)
+
+
+def ladder_ops(bits, affine):
+    """int32 instructions of K5's least work on this run's scalars, bits
+    (254, B) LSB first. A lane whose top set bit is bit k needs k
+    doublings of the base, an addition for each set bit (acc is kept where
+    the bit is 0) and base's T = x*y; a lane with no set bit gives the
+    identity and needs nothing. The extended output's representative is
+    that of the unified addition, so its doublings are unified; the affine
+    output is unique, so it takes the doubling formula, the inversion of Z
+    and two products by 1/Z."""
+    bits = bits.cpu()
+    tops = (bits * torch.arange(1, bits.shape[0] + 1)[:, None]).max(0).values
+    adds = int(bits.sum())
+    dbls = int((tops - 1).clamp(min=0).sum())
+    lanes = int((tops > 0).sum())
+    if affine:
+        return (adds * OPS_BJJ_ADD + dbls * OPS_BJJ_DBL
+                + lanes * (3 * OPS_MONT_MUL + OPS_FR_INV))
+    return (adds * OPS_BJJ_ADD + dbls * OPS_BJJ_DBL_UNIFIED
+            + lanes * OPS_MONT_MUL)
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -176,26 +248,53 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kernel_fn, plain_fn, nbytes, int_ops, reps=10,
-            mma_ops=0):
-    """Run kernel and plain version on the same CUDA inputs; they must be
-    bit-equal. Returns (kernel outputs, JSON entry without launches)."""
-    k_out, p_out = kernel_fn(), plain_fn()
+def timed_once(fn):
+    """(fn's output, its device ms) of one call, CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
     torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_abs_err(k_out, p_out):
     if isinstance(k_out, torch.Tensor):
         k_out, p_out = [k_out], [p_out]
-    err = max(int((a - b).abs().max()) for a, b in zip(k_out, p_out))
-    check(err == 0, f"{name}: kernel differs from plain (max abs {err})")
+    return max(int((a - b).abs().max()) for a, b in zip(k_out, p_out))
+
+
+def compare(name, kernel_fn, plain_fn, nbytes, int_ops, reps=10,
+            mma_ops=0, plain_once=False, plain_lanes=None):
+    """Run kernel and plain version on the same CUDA inputs; they must be
+    bit-equal. The plain version is timed after a warm-up run, or, with
+    plain_once (plain versions that take seconds), on the one run that is
+    compared. With plain_lanes = m, plain_fn computes the batch's first m
+    lanes only (the batch is every output's last dimension) and the
+    kernel's outputs are compared on those. Returns (kernel outputs, JSON
+    entry without launches)."""
+    k_out = kernel_fn()
+    p_out, plain_ms = timed_once(plain_fn)
+    if isinstance(k_out, torch.Tensor):
+        k_out, p_out = [k_out], [p_out]
+    err = max_abs_err([k[..., :plain_lanes] for k in k_out], p_out)
+    on = "" if plain_lanes is None else f" on {plain_lanes} lanes"
+    check(err == 0, f"{name}: kernel differs from plain{on} (max abs {err})")
     ms = cuda_ms(kernel_fn, reps)
-    plain_ms = cuda_ms(plain_fn, 1)
+    if not plain_once:
+        plain_ms = cuda_ms(plain_fn, 1)
     _, source, replaces = KERNELS[name]
     bound_ms, bound_by = bound(nbytes, int_ops, mma_ops)
-    print(f"  {name}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.2f} "
-          f"ms, bound {bound_ms:.6f} ms ({bound_by})")
-    return k_out, {"name": name, "route": "cuda", "source": source,
-                   "replaces": replaces, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": None}
+    print(f"  {name}: bit-equal{on}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms{on}, bound {bound_ms:.6f} ms ({bound_by})")
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
+    if plain_lanes is not None:
+        entry["plain_lanes"] = plain_lanes
+    return k_out, entry
 
 
 def words_to_bytes(col) -> bytes:
@@ -313,11 +412,41 @@ def smt_path_root(key, value, siblings):
     return node
 
 
+SMT_LEVELS = 80
+SMT_PLAIN_LANES = 128       # the full-depth profile's plain run: a slice
+
+
+def smt_bound(args):
+    """K4's bound from the live (lane, level) pairs of this batch (its top
+    flags): those levels need a permutation, the sibling's conversion and
+    the sibling and key bit; every level needs its top and inew flags;
+    every lane the leaf's t = 4 permutation, key and value in, the root
+    out and two conversions."""
+    top = args[2]
+    n, batch = top.shape
+    live = int(top.sum())
+    nbytes = 8 * (2 * n * batch + live * 17 + 3 * 16 * batch)
+    int_ops = (live * (poseidon_ops(3) + OPS_MONT_MUL)
+               + (poseidon_ops(4) + 2 * OPS_MONT_MUL) * batch)
+    return live, nbytes, int_ops
+
+
+def smt_case(dev, keys_t, vals_t, sib_cols):
+    """The climb's inputs for one sibling path a lane (index 0 root-most)."""
+    sibs = bn.to_tensor(np.stack([fr.batch_to_limbs(c) for c in sib_cols],
+                                 axis=-1), dev)             # (16, n, B)
+    return (*smt.climb_inputs(keys_t, sibs), keys_t, vals_t)
+
+
 def phase_smt(dev, rng):
-    """The 80-level climb at B = 1024: most lanes with all-zero siblings
-    as on the flagship, every eighth lane with non-zero siblings down to
-    depths of up to 24."""
-    n = 80
+    """The 80-level climb at B = 1024 in three depth profiles: mixed (most
+    lanes with all-zero siblings as on the flagship, every eighth lane
+    with non-zero siblings down to depths of up to 24; the JSON entry),
+    flagship (all zero: no live level) and full (every sibling but the
+    topmost, which a proof holds zero, non-zero: 79 live levels a lane,
+    the deepest level holding the leaf). The
+    full-depth plain version runs on the first 128 lanes."""
+    n = SMT_LEVELS
     keys, key_t = rand_fr(dev, rng)
     vals, val_t = rand_fr(dev, rng)
     sib_cols = [[0] * n for _ in range(BATCH)]
@@ -325,28 +454,42 @@ def phase_smt(dev, rng):
         depth = rng.randrange(1, 25)
         for i in range(depth):
             sib_cols[lane][i] = rng.randrange(fr.P) if rng.random() < .8 else 0
-    sibs = bn.to_tensor(np.stack([fr.batch_to_limbs(c) for c in sib_cols],
-                                 axis=-1), dev)            # (16, n, B)
-    args = (*smt.climb_inputs(key_t, sibs), key_t, val_t)
-    outs, entry = compare("smt_climb",
+    full_cols = [[rng.randrange(1, fr.P) for _ in range(n - 1)] + [0]
+                 for _ in range(BATCH)]
+    cases = {"mixed": sib_cols, "flagship": [[0] * n] * BATCH,
+             "full": full_cols}
+    profiles = []
+    for profile, cols in cases.items():
+        args = smt_case(dev, key_t, val_t, cols)
+        live, nbytes, int_ops = smt_bound(args)
+        m = SMT_PLAIN_LANES if profile == "full" else None
+        sl = tuple(a[:, :m].contiguous() for a in args)
+        outs, e = compare("smt_climb",
                           lambda: cuda_poseidon.smt_climb(*args),
-                          lambda: cuda_poseidon.smt_climb_plain(*args),
-                          nbytes=8 * (sum(a.numel() for a in args)
-                                      + 2 * 16 * BATCH),
-                          int_ops=(n * (poseidon_ops(3) + OPS_MONT_MUL)
-                                   + poseidon_ops(4) + 2 * OPS_MONT_MUL)
-                          * BATCH, reps=3)
-    lanes = [0, 1] + list(range(9, BATCH, BATCH // 8))      # 1 mod 8: deep
-    got = fr.batch_from_limbs(outs[0][:, lanes])
-    want = [smt_path_root(keys[i], vals[i], sib_cols[i]) for i in lanes]
-    check(got == want, "smt_climb root != oracle")
-    entry["shape"] = "N=80 levels (+ the leaf's t=4 permutation), B=1024"
+                          lambda: cuda_poseidon.smt_climb_plain(*sl),
+                          nbytes=nbytes, int_ops=int_ops, reps=3,
+                          plain_once=True, plain_lanes=m)
+        if profile == "mixed":
+            entry = e
+        rec = {k: v for k, v in e.items() if k in (
+            "ms", "plain_ms", "plain_lanes", "bound_ms", "bound_by",
+            "max_abs_err")}
+        rec.update(profile=profile, live_pairs=live)
+        profiles.append(rec)
+        print(f"  smt_climb [{profile}]: {live} live (lane, level) pairs")
+        lanes = [0, 1] + list(range(9, BATCH, BATCH // 8))  # 1 mod 8: deep
+        got = fr.batch_from_limbs(outs[0][:, lanes])
+        want = [smt_path_root(keys[i], vals[i], cols[i]) for i in lanes]
+        check(got == want, f"smt_climb [{profile}] root != oracle")
+    entry["shape"] = ("N=80 levels (+ the leaf's t=4 permutation), B=1024, "
+                      "the mixed profile; profiles: flagship, mixed, full")
+    entry["profiles"] = profiles
     return entry
 
 
 def phase_ladder(dev, rng):
     """The 254-bit Base8 ladder at B = 1024 with sk in {0, 1, P-1} among
-    the lanes."""
+    the lanes, both entries: extended, and affine with the inversion."""
     sks, _ = rand_fr(dev, rng)
     sks[:3] = [0, 1, fr.P - 1]
     sk_t = bn.to_tensor(fr.batch_to_limbs(sks), dev)
@@ -357,16 +500,25 @@ def phase_ladder(dev, rng):
                           lambda: cuda_babyjubjub.ladder(bits, bx, by),
                           lambda: cuda_babyjubjub.ladder_plain(bits, bx, by),
                           nbytes=8 * (bits.numel() + 6 * 16 * BATCH),
-                          int_ops=(254 * OPS_LADDER_STEP + 10 * OPS_MONT_MUL)
-                          * BATCH, reps=3)
-    ax, ay = bjj.to_affine(tuple(outs))
+                          int_ops=ladder_ops(bits, affine=False), reps=3)
     lanes = list(range(8))
+    want = [bref.base8_mul(sks[i] % (1 << 254)) for i in lanes]
+    ax, ay = bjj.to_affine(tuple(outs))
     got = list(zip(fr.batch_from_limbs(ax[:, lanes]),
                    fr.batch_from_limbs(ay[:, lanes])))
-    check(got == [bref.base8_mul(sks[i] % (1 << 254)) for i in lanes],
-          "ladder != babyjubjub oracle")
-    entry["shape"] = "254 bits, B=1024"
-    return entry
+    check(got == want, "ladder != babyjubjub oracle")
+    entry["shape"] = "254 bits, B=1024, extended out"
+    outs, e_aff = compare(
+        "ladder_affine",
+        lambda: cuda_babyjubjub.ladder_affine(bits, bx, by),
+        lambda: cuda_babyjubjub.ladder_affine_plain(bits, bx, by),
+        nbytes=8 * (bits.numel() + 4 * 16 * BATCH),
+        int_ops=ladder_ops(bits, affine=True), reps=3, plain_once=True)
+    got = list(zip(fr.batch_from_limbs(outs[0][:, lanes]),
+                   fr.batch_from_limbs(outs[1][:, lanes])))
+    check(got == want, "ladder_affine != babyjubjub oracle")
+    e_aff["shape"] = "254 bits, B=1024, affine out (inversion in the kernel)"
+    return [entry, e_aff]
 
 
 def _edge_lanes(dev, rng):
@@ -505,13 +657,15 @@ def reset_launches():
         fn.launches = 0
 
 
-def read_launches(names, entries, path):
+def read_launches(names, entries, path, off_path=()):
     """Check that each kernel in names launched on the path just run, and
-    record its count in its JSON entry."""
+    record its count in its JSON entry; kernels in off_path, which no path
+    runs, get theirs from this path's run (0) too."""
     launches = {name: KERNELS[name][0].launches for name in names}
     print(f"  {path}: launches {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by {path}")
+    launches.update({name: KERNELS[name][0].launches for name in off_path})
     for e in entries:
         if e["name"] in launches:
             e["launches"] = launches[e["name"]]
@@ -531,7 +685,10 @@ def phase_slice(dev, rng, entries):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     print(f"  forward: {first_s * 1e3:.1f} ms (first call)")
-    read_launches(WITNESS_KERNELS, entries, "the witness step")
+    # K5's extended entry is held against its plain version only: the
+    # witness step takes the affine one
+    read_launches(WITNESS_KERNELS, entries, "the witness step",
+                  off_path=("ladder",))
 
     flow, sig, smt_ok = (out[k].cpu() for k in ("flow_ok", "sig_ok",
                                                 "smt_ok"))
@@ -548,6 +705,59 @@ def phase_slice(dev, rng, entries):
         check(got == want, f"{name} != oracle on sampled lanes")
     print(f"  outputs equal the oracles on {len(lanes)} lanes; verdicts ok")
     return p, inp
+
+
+def forward_launches(p, inp):
+    """CUDA kernels of one forward, their summed device ms and the
+    forward's wall ms, from torch.profiler (CPU and CUDA activities); the
+    device's idle share is 1 - device / wall. Memory copies and sets are
+    not counted as kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ri.forward(p, inp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return len(kernels), device_ms, wall_ms
+
+
+def stage_ms(p, inp, reps=3):
+    """Mean ms of each stage of the witness step called alone on the
+    flagship inputs through its public function, host clock around work
+    fenced with torch.cuda.synchronize()."""
+    pp = inp.passport
+    pv_out = pv.forward(p, pp)
+    sig = p.sig
+    stages = {
+        "forward": lambda: ri.forward(p, inp),
+        "passport_verification.forward": lambda: pv.forward(p, pp),
+        "rsa.verify_pkcs1v15 (K2)": lambda: rsa.verify_pkcs1v15(
+            pp.signature, pp.pubkey, pp.pubkey_mu, pv_out["sa_hash_words"],
+            sig.hash_len, sig.key_bits, sig.exp),
+        "smt.verify (K3 leaf + K4)": lambda: smt.verify(
+            pp.slave_root, pv_out["pubkey_hash"], pv_out["pubkey_hash"],
+            pp.slave_branches),
+        "dg15_pubkey_hash": lambda: ri.dg15_pubkey_hash(p, pp.dg15_words),
+        "dg1_commitment": lambda: ri.dg1_commitment(p, pp.dg1_words,
+                                                    inp.sk_identity),
+        "pk_identity_hash": lambda: ri.pk_identity_hash(inp.sk_identity),
+        "babyjubjub.base8_mul (K5 affine)": lambda: bjj.base8_mul(
+            inp.sk_identity),
+    }
+    timer = profiling.StageTimer()
+    for fn in stages.values():
+        fn()
+    for _ in range(reps):
+        for name, fn in stages.items():
+            with timer.stage(name, block_on=inp.sk_identity):
+                fn()
+    return {k: v * 1e3 / reps for k, v in timer.times.items()}
 
 
 def chained_steps(p, inp):
@@ -631,6 +841,12 @@ def main():
 
     print("phase slice")
     p, inp = phase_slice(dev, rng, entries)
+    n_kernels, device_ms, wall_ms = forward_launches(p, inp)
+    print(f"one forward under torch.profiler: {n_kernels} CUDA kernels, "
+          f"{device_ms:.2f} ms device, {wall_ms:.1f} ms wall, device idle "
+          f"{100 * (1 - device_ms / wall_ms):.1f} %; card: {card}")
+    for name, ms in stage_ms(p, inp).items():
+        print(f"  stage {name}: {ms:.2f} ms (mean of 3)")
     dt = chained_steps(p, inp)
     print(f"chained step: {dt * 1e3:.1f} ms/step, {BATCH / dt:.1f} "
           f"witnesses/s, batch {BATCH}, {CHAINED_STEPS} steps; card: {card}")

@@ -182,4 +182,56 @@ PZK_HD Fe load_words(const uint32_t* c) {
   return r;
 }
 
+// The per-thread arithmetic as a policy: poseidon.cuh and babyjubjub.cuh
+// write their algorithms once over a policy A (an element is an A::Fe), and
+// run them with one thread a lane (Lane, here) or a team of threads a lane
+// (frt::Team, fr_team.cuh).
+struct Lane {
+  using Fe = fr::Fe;
+  PZK_HD Fe zero() const { return fr::zero(); }
+  PZK_HD Fe one() const { return one_mont(); }
+  PZK_HD Fe small(uint32_t v) const {
+    Fe x = fr::zero();
+    x.w[0] = v;
+    return x;
+  }
+  PZK_HD Fe add(const Fe& a, const Fe& b) const { return fr::add(a, b); }
+  PZK_HD Fe sub(const Fe& a, const Fe& b) const { return fr::sub(a, b); }
+  PZK_HD Fe mul(const Fe& a, const Fe& b) const { return fr::mul(a, b); }
+  PZK_HD Fe sqr(const Fe& a) const { return fr::mul(a, a); }
+  PZK_HD Fe to_mont(const Fe& a) const { return fr::to_mont(a); }
+  PZK_HD Fe from_mont(const Fe& a) const { return fr::from_mont(a); }
+  // entry idx of a table of 8-word Montgomery constants
+  PZK_HD Fe at(const uint32_t* base, int idx) const {
+    return load_words(base + NW * idx);
+  }
+  PZK_HD Fe load(const int64_t* x, long stride) const {
+    return load_limbs(x, stride);
+  }
+  PZK_HD void store(const Fe& a, int64_t* x, long stride) const {
+    store_limbs(a, x, stride);
+  }
+  // whether any lane that runs in step with this one has p set: one lane
+  PZK_HD bool any(bool p) const { return p; }
+};
+
+// a^(P-2) in Montgomery form, square-and-multiply from the top bit of the
+// exponent: a^-1 for a != 0, and 0 for a = 0 (ops/field.inv's convention).
+// 256 squarings and 127 products (popcount of P - 2).
+template <class A>
+PZK_HD typename A::Fe inv(const A& f, const typename A::Fe& a) {
+  const uint32_t p[NW] = {PZK_FR_P};
+  typename A::Fe r = f.one();
+#pragma unroll
+  for (int w = NW - 1; w >= 0; --w) {
+    const uint32_t e = w == 0 ? p[0] - 2 : p[w];     // P - 2: no borrow
+#pragma unroll 1
+    for (int b = 31; b >= 0; --b) {
+      r = f.sqr(r);
+      if ((e >> b) & 1) r = f.mul(r, a);
+    }
+  }
+  return r;
+}
+
 }  // namespace fr

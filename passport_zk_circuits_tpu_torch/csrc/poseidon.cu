@@ -1,17 +1,24 @@
 // K3 and K4: the circomlib PoseidonEx permutation and the whole SMT root
-// climb, one lane per thread, over one permutation body (poseidon.cuh).
-// Replace the TPU kernels _permute / poseidon_ex and smt_climb of
+// climb, over one permutation body (poseidon.cuh). Replace the TPU kernels
+// _permute / poseidon_ex and smt_climb of
 // passport_zk_circuits_tpu/ops/pallas_poseidon.py.
 //
 // A permutation is ~65-70 rounds of dependent Montgomery products (t = 3:
-// about 380 of them, each 64 32-bit multiply-adds twice over); the state
-// (t x 8 words) sits in registers and the round constants are read from
-// global memory, where every thread of a warp reads the same address. So the
-// kernels are bound by integer multiply throughput and latency, not bytes.
+// about 380 of them, each 64 32-bit multiply-adds twice over), so both
+// kernels are bound by integer multiply latency and throughput, not bytes.
+// K3 runs one lane per thread, the round constants read from global memory
+// (every thread of a warp reads the same address). K4 runs a team of eight
+// threads a lane (fr_team.cuh), one word each, in blocks of one warp (four
+// lanes): B = 1024 is 256 blocks, so every SM gets work. Its t = 3 pack
+// (12 KB) sits in shared memory, where the eight threads of a team read
+// eight banks and the four teams of a warp share them. A warp skips a level
+// when none of its lanes is on the top path there (the hash would be
+// discarded), so a batch pays for the levels its proofs use.
 // The TPU route is capped at t <= 8 by an f32 exactness bound of the MXU;
-// these kernels take every t from 2 to 17.
+// K3 takes every t from 2 to 17.
 #include <cuda_runtime.h>
 
+#include "fr_team.cuh"
 #include "poseidon.cuh"
 
 // state: (16 T, B) canonical limbs, element j in rows 16j..16j+15;
@@ -26,38 +33,37 @@ __global__ void poseidon_kernel(const int64_t* __restrict__ state,
   fr::Fe st[T];
   for (int j = 0; j < T; ++j)
     st[j] = fr::to_mont(fr::load_limbs(state + (long)16 * j * B + lane, B));
-  poseidon::permute<T>(st, pack, nP);
+  poseidon::permute<T>(fr::Lane(), st, pack, nP);
   for (int j = 0; j < n_outs; ++j)
     fr::store_limbs(fr::from_mont(st[j]), out + (long)16 * j * B + lane, B);
 }
 
 // sibs: (16 N, B) deepest level first; lr, top, inew: (N, B) flags;
 // leaf: (16, B) = Poseidon(key, value, 1); out: (16, B) computed root.
-// Per level: hash (L, R) ordered by the key bit, then keep the hash while on
-// the top path, the leaf where the leaf is inserted, zero below it.
-__global__ void smt_climb_kernel(const int64_t* __restrict__ sibs,
-                                 const int64_t* __restrict__ lr,
-                                 const int64_t* __restrict__ top,
-                                 const int64_t* __restrict__ inew,
-                                 const int64_t* __restrict__ leaf,
-                                 int64_t* __restrict__ out,
-                                 const uint32_t* __restrict__ pack3, int nP,
-                                 int n_levels, int B) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const fr::Fe leaf_m = fr::to_mont(fr::load_limbs(leaf + lane, B));
-  fr::Fe child = fr::zero();
-  for (int i = 0; i < n_levels; ++i) {
-    const fr::Fe sib =
-        fr::to_mont(fr::load_limbs(sibs + (long)16 * i * B + lane, B));
-    const bool right = lr[(long)i * B + lane] != 0;
-    fr::Fe st[3] = {fr::zero(), right ? sib : child, right ? child : sib};
-    poseidon::permute<3>(st, pack3, nP);
-    child = top[(long)i * B + lane] != 0
-                ? st[0]
-                : (inew[(long)i * B + lane] != 0 ? leaf_m : fr::zero());
-  }
-  fr::store_limbs(fr::from_mont(child), out + lane, B);
+// One warp a block, a team of eight threads a lane; pack3 goes to shared
+// memory first.
+__global__ void __launch_bounds__(32)
+    smt_climb_kernel(const int64_t* __restrict__ sibs,
+                     const int64_t* __restrict__ lr,
+                     const int64_t* __restrict__ top,
+                     const int64_t* __restrict__ inew,
+                     const int64_t* __restrict__ leaf,
+                     int64_t* __restrict__ out,
+                     const uint32_t* __restrict__ pack3, int nP, int n_levels,
+                     int B) {
+  extern __shared__ uint32_t k3[];
+  const int words = fr::NW * poseidon::pack_entries(3, nP);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) k3[w] = pack3[w];
+  __syncthreads();
+  const frt::Team tm = frt::device_team();
+  const long lane = (long)blockIdx.x * (blockDim.x / frt::TEAM) +
+                    threadIdx.x / frt::TEAM;
+  // threads past the batch run on its last lane and store nothing
+  const long mine = lane < B ? lane : B - 1;
+  const uint32_t root = poseidon::smt_climb(tm, sibs, lr, top, inew, leaf,
+                                            k3, nP, n_levels, mine, B);
+  const uint32_t canon = tm.from_mont(root);
+  if (lane < B) tm.store(canon, out + lane, B);
 }
 
 #define PZK_POSEIDON_CASE(T)                                                \
@@ -89,8 +95,10 @@ extern "C" int pzk_smt_climb(const int64_t* sibs, const int64_t* lr,
                              const int64_t* leaf, int64_t* out,
                              const uint32_t* pack3, int nP, int n_levels,
                              int B, cudaStream_t stream) {
+  constexpr int LANES = 32 / frt::TEAM;                // lanes a block
+  const size_t smem = 4 * fr::NW * poseidon::pack_entries(3, nP);
   if (B > 0)
-    smt_climb_kernel<<<(B + 127) / 128, 128, 0, stream>>>(
+    smt_climb_kernel<<<(B + LANES - 1) / LANES, 32, smem, stream>>>(
         sibs, lr, top, inew, leaf, out, pack3, nP, n_levels, B);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 
 Counterpart of ``passport_zk_circuits_tpu/ops/babyjubjub.py``: points in
 extended twisted-Edwards coordinates (X:Y:Z:T), the complete unified
-addition add-2008-hwcd, one Fermat inversion back to affine at the end.
+addition add-2008-hwcd, one Fermat inversion back to affine at the end
+(``to_affine``, used by the plain versions; on the card K5's affine entry
+does it).
 
 Field tensors are (16, *B); the plain addition stacks its independent
 products along the last batch axis, so one addition is three batched modmul
@@ -72,13 +74,13 @@ def select_point(cond, p, q):
 
 def scalar_mul(scalar, point, nbits: int = 254):
     """scalar: (16, B) Fr limbs, used as an integer (Num2Bits(254));
-    point: affine (x, y). Returns affine (x, y). The LSB-first ladder goes
-    through the kernel wrapper, which takes a CUDA tensor to the
-    hand-written kernel and a CPU tensor to the plain version; the affine
-    inversion stays in plain PyTorch."""
+    point: affine (x, y). Returns affine (x, y). The LSB-first ladder and
+    the affine inversion go through the kernel wrapper, which takes a CUDA
+    tensor to the hand-written kernel and a CPU tensor to the plain
+    version."""
     from . import cuda_babyjubjub
     x, y = point
-    return to_affine(cuda_babyjubjub.ladder(fr.to_bits(scalar, nbits), x, y))
+    return cuda_babyjubjub.ladder_affine(fr.to_bits(scalar, nbits), x, y)
 
 
 def base8_mul(scalar):

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "pzk_poseidon": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pzk_smt_climb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pzk_ladder": [_P, _P, _P, _P, _I, _I, _P],
+    "pzk_ladder_affine": [_P, _P, _P, _P, _I, _I, _P],
     "pzk_fr_mul": [_P, _P, _I, _P, _I, _P],
     "pzk_fr_mul_chain": [_P, _P, _I, _P, _I, _I, _P],
     "pzk_loop": [_I, _P, _P, _P, _I, _I, _P],

@@ -4,12 +4,13 @@
 Replace ``poseidon_ex`` / ``_permute`` and ``smt_climb`` of
 ``passport_zk_circuits_tpu/ops/pallas_poseidon.py``. On the H100 a
 permutation is a chain of ~65-70 rounds of dependent 256-bit Montgomery
-products on a state that fits in registers, with round constants that every
-thread of a warp reads from the same address: the kernels are bound by
-32-bit integer multiply throughput and latency, not by memory. One thread
-per lane; the SMT kernel runs all levels in one launch, so the climb pays
-one launch and keeps the child hash in registers. The TPU route is capped at
-t <= 8 by the MXU's f32 exactness; these kernels take every t from 2 to 17.
+products: the kernels are bound by 32-bit integer multiply throughput and
+latency, not by memory. K3 runs one thread per lane. K4 runs the whole
+climb in one launch with a team of eight threads a lane (csrc/fr_team.cuh),
+one warp (four lanes) a block, the t = 3 constants in shared memory, and
+skips a level for a warp when none of its lanes is on the top path there.
+The TPU route is capped at t <= 8 by the MXU's f32 exactness; K3 takes
+every t from 2 to 17.
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ def smt_climb(siblings_flip, lrbits_flip, top_flip, inew_flip, key, value):
     16 limb rows per level; lrbits/top/inew_flip: (N, B) 0/1 flags, deepest
     first; key, value: (16, B) canonical. Returns the root (16, B). The
     leaf hash is one K3 launch, the climb one K4 launch. A CPU tensor takes
-    the plain version."""
+    the plain version; a CUDA tensor launches the kernels."""
     if not key.is_cuda:
         return smt_climb_plain(siblings_flip, lrbits_flip, top_flip,
                                inew_flip, key, value)

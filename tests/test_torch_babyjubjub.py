@@ -60,3 +60,24 @@ def test_ladder_wrapper_on_cpu_is_the_plain_version():
     x, y = bjj.to_affine(ext)
     assert list(zip(fr.batch_from_limbs(x), fr.batch_from_limbs(y))) == \
         [bref.base8_mul(5), bref.base8_mul(1 << 200)]
+
+
+def test_ladder_affine_on_cpu_matches_jax_scalar_mul_and_oracle():
+    """The affine entry, on a CPU tensor its plain version, against the
+    JAX package's scalar_mul on a base other than Base8 and the oracle, for
+    scalars 0, 1, P-1 and a seeded one (B = 4); base8_mul goes through the
+    same entry (test_base8_mul_matches_jax_and_oracle)."""
+    sks = [0, 1, fr.P - 1, rng.randrange(fr.P)]
+    sk_np = jfr.batch_to_limbs(sks)
+    pt = bref.base8_mul(rng.randrange(1, 1 << 64))
+    px_np = jfr.batch_to_limbs([pt[0]] * 4)
+    py_np = jfr.batch_to_limbs([pt[1]] * 4)
+    bits = fr.to_bits(_t(sk_np), 254)
+    before = cuda_babyjubjub.ladder_affine.launches
+    x, y = cuda_babyjubjub.ladder_affine(bits, _t(px_np), _t(py_np))
+    assert cuda_babyjubjub.ladder_affine.launches == before
+    jx, jy = jbjj.scalar_mul(sk_np, (px_np, py_np))
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    assert list(zip(fr.batch_from_limbs(x), fr.batch_from_limbs(y))) == \
+        [bref.scalar_mul(s % (1 << 254), pt) for s in sks]

@@ -5,7 +5,9 @@ __device__ and free of CUDA intrinsics, so g++ builds them (through
 tests/torch_csrc_host_check.cc) into a small host library. Each check here
 holds one piece of kernel arithmetic against the port's plain PyTorch
 version and the Python-int oracle, bit for bit (tolerance 0: everything is
-integer arithmetic). This catches arithmetic faults before they reach the
+integer arithmetic). The team arithmetic of fr_team.cuh (K4, K5: eight
+threads a lane, joined by shuffles and ballots) runs here with the team's
+threads as coroutines that take turns at every shuffle and ballot. This catches arithmetic faults before they reach the
 card; the kernels themselves are built and compared on the card by
 chip_smoke.py.
 """
@@ -23,11 +25,13 @@ import torch
 
 from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
+from passport_zk_circuits_tpu_torch.ops import cuda_babyjubjub
 from passport_zk_circuits_tpu_torch.ops import cuda_loop
 from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
 from passport_zk_circuits_tpu_torch.ops import field as fr
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
 from passport_zk_circuits_tpu_torch.ops import sha2
+from passport_zk_circuits_tpu_torch.ops import smt
 from passport_zk_circuits_tpu.utils import babyjubjub_ref as bref
 from passport_zk_circuits_tpu.utils import poseidon_ref as pref
 
@@ -167,3 +171,102 @@ def test_loop_body(lib, body):
                              _ptr(_limbs(y)), n, _ptr(out)) == 0
         assert _int(out) == _int(plain[:, lane]) == \
             cuda_loop.body_ints(body, x, y, n)
+
+
+def _pack3():
+    pack = cuda_poseidon._pack(3, torch.device("cpu")).numpy().view(np.uint32)
+    return np.ascontiguousarray(pack)
+
+
+def test_fr_inv_per_thread_and_team(lib):
+    """fr::inv (Fermat, a^(P-2)) with one thread a lane and with a team,
+    against Python's pow; inv(0) = 0 as in ops/field.inv."""
+    for a in EDGES + [2, rng.randrange(fr.P)]:
+        want = pow(a, fr.P - 2, fr.P)
+        out = np.zeros(16, np.int64)
+        lib.host_fr_inv(_ptr(_limbs(a)), _ptr(out))
+        assert _int(out) == want
+        out = np.zeros(16, np.int64)
+        lib.host_team_op(4, _ptr(_limbs(a)), _ptr(_limbs(0)), _ptr(out))
+        assert _int(out) == want
+    assert _int(out) * a % fr.P == 1
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr", "add", "sub", "mont"])
+def test_team_field_ops(lib, op):
+    """The team's mul, sqr, add, sub and Montgomery round trip against the
+    port's plain field ops and Python ints, on 0, 1, P-1, P-2 and seeded
+    values (carries and borrows through all-ones and all-zero words)."""
+    xs = EDGES + [fr.P - 2, (1 << 224) - 1] + [rng.randrange(fr.P)
+                                                for _ in range(3)]
+    pairs = [(a, b) for a in xs for b in xs]
+    code = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "mont": 5}[op]
+    a_t, b_t = _t([a for a, _ in pairs]), _t([b for _, b in pairs])
+    plain = {"mul": lambda: fr.mul(a_t, b_t), "sqr": lambda: fr.sqr(a_t),
+             "add": lambda: fr.add(a_t, b_t), "sub": lambda: fr.sub(a_t, b_t),
+             "mont": lambda: a_t}[op]()
+    want = {"mul": lambda a, b: a * b, "sqr": lambda a, b: a * a,
+            "add": lambda a, b: a + b, "sub": lambda a, b: a - b,
+            "mont": lambda a, b: a}[op]
+    for (a, b), p in zip(pairs, fr.batch_from_limbs(plain)):
+        out = np.zeros(16, np.int64)
+        lib.host_team_op(code, _ptr(_limbs(a)), _ptr(_limbs(b)), _ptr(out))
+        assert _int(out) == p == want(a, b) % fr.P
+
+
+def test_team_poseidon3(lib):
+    ins = [rng.randrange(fr.P) for _ in range(2)]
+    state = np.concatenate([_limbs(0)] + [_limbs(x) for x in ins])
+    out = np.zeros(16, np.int64)
+    lib.host_team_poseidon3(_ptr(state), _ptr(_pack3(), _PU32),
+                            pos.N_ROUNDS_P[1], _ptr(out))
+    assert [_int(out)] == [pref.poseidon(ins)]
+
+
+@pytest.mark.parametrize("team", [0, 1])
+def test_smt_climb_body(lib, team):
+    """K4's per-lane climb (poseidon::smt_climb), one thread a lane and a
+    team a lane, against smt_climb_plain on lanes with 0, 1, 3 and 5 live
+    levels of 6: each lane skips exactly the levels off its top path."""
+    n, depths = 6, [0, 1, 3, 5]
+    B = len(depths)
+    cols = [[rng.randrange(1, fr.P) if i < d else 0 for i in range(n)]
+            for d in depths]
+    sibs = bn.to_tensor(np.stack([fr.batch_to_limbs(c) for c in cols],
+                                 axis=-1), "cpu")
+    key, value = _t([rng.randrange(fr.P) for _ in range(B)]), \
+        _t([rng.randrange(fr.P) for _ in range(B)])
+    args = smt.climb_inputs(key, sibs)
+    assert args[2].sum(0).tolist() == depths
+    leaf = cuda_poseidon.poseidon_ex_plain(cuda_poseidon._leaf(key, value))
+    flat = [np.ascontiguousarray(a.numpy()) for a in args]
+    leaf_np = np.ascontiguousarray(leaf[:, 0].numpy())
+    out = np.zeros((16, B), np.int64)
+    lib.host_smt_climb(team, *[_ptr(a) for a in flat], _ptr(leaf_np),
+                       _ptr(_pack3(), _PU32), pos.N_ROUNDS_P[1], n, B,
+                       _ptr(out))
+    want = cuda_poseidon.smt_climb_plain(*args, key, value)
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+@pytest.mark.parametrize("affine", [0, 1])
+def test_team_ladder(lib, affine):
+    """K5's per-lane ladder with a team a lane, both entries, against the
+    plain versions on 12-bit scalars 0, 1, 4095 and a seeded one."""
+    nbits = 12
+    sks = [0, 1, (1 << nbits) - 1, rng.randrange(1 << nbits)]
+    B = len(sks)
+    pt = bref.base8_mul(rng.randrange(1, 1 << 40))
+    bits = fr.to_bits(_t(sks), nbits)
+    bx, by = _t([pt[0]] * B), _t([pt[1]] * B)
+    out = np.zeros((4 - 2 * affine, 16, B), np.int64)
+    lib.host_team_ladder(affine, _ptr(np.ascontiguousarray(bits.numpy())),
+                         _ptr(bx.numpy()), _ptr(by.numpy()), nbits, B,
+                         _ptr(out))
+    plain = (cuda_babyjubjub.ladder_affine_plain if affine
+             else cuda_babyjubjub.ladder_plain)(bits, bx, by)
+    np.testing.assert_array_equal(out, torch.stack(plain).numpy())
+    if affine:
+        assert list(zip(fr.batch_from_limbs(torch.tensor(out[0])),
+                        fr.batch_from_limbs(torch.tensor(out[1])))) == \
+            [bref.scalar_mul(s, pt) for s in sks]

@@ -1,4 +1,4 @@
-"""The nine hand-written kernels on the card, each against its plain
+"""The hand-written kernels on the card, each against its plain
 PyTorch version on the same CUDA tensors (bit for bit: tolerance 0), at
 small and ragged batches, and the K9 probe battery probe by probe. Needs a CUDA device and skips without one. The machine with
 the card has no JAX, so run these without the repository's conftest:
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from passport_zk_circuits_tpu_torch.utils import babyjubjub_ref as bref
 from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
@@ -96,28 +97,74 @@ def test_poseidon_kernel_initial_state_and_oracle(dev):
             for i in range(3)]
 
 
-def test_smt_climb_kernel(dev):
-    n = 80
+def _smt_sibs(dev, profile, n=80):
+    """(16, n, B) sibling paths, index 0 root-most. flagship: all zero (no
+    live level); mixed: every third lane non-zero down to depths 1-29;
+    full: every sibling but the topmost (zero in a proof) non-zero, 79 live
+    levels of 80 (the deepest level holds the leaf), except lanes 0-3, one
+    warp of the kernel, which mix 0, 1, 24 and 79 live levels."""
     sibs = torch.zeros((16, n, B), dtype=torch.int64, device=dev)
-    for lane in range(1, B, 3):
-        depth = rng.randrange(1, 30)
-        sibs[:, :depth, lane] = _fr(dev, depth)
+    if profile == "mixed":
+        for lane in range(1, B, 3):
+            depth = rng.randrange(1, 30)
+            sibs[:, :depth, lane] = _fr(dev, depth)
+    elif profile == "full":
+        for lane in range(1, B):
+            depth = {1: 1, 2: 24}.get(lane, n - 1)
+            sibs[:, :depth, lane] = _fr(dev, depth)
+    return sibs
+
+
+@pytest.mark.parametrize("profile", ["flagship", "mixed", "full"])
+def test_smt_climb_kernel(dev, profile):
+    sibs = _smt_sibs(dev, profile)
     key, value = _fr(dev), _fr(dev)
     args = (*smt.climb_inputs(key, sibs), key, value)
-    _same(cuda_poseidon.smt_climb(*args),
-          cuda_poseidon.smt_climb_plain(*args))
+    live = args[2].sum(0).tolist()
+    if profile == "full":
+        assert live[:4] == [0, 1, 24, 79] and set(live[4:]) == {79}
+    before = cuda_poseidon.smt_climb.launches
+    out = cuda_poseidon.smt_climb(*args)
+    assert cuda_poseidon.smt_climb.launches == before + 1
+    _same(out, cuda_poseidon.smt_climb_plain(*args))
 
 
-def test_ladder_kernel(dev):
+@pytest.mark.parametrize("base8", [False, True])
+def test_ladder_kernel(dev, base8):
+    """Both K5 entries against their plain versions, with sk 0, 1 and P-1
+    in lanes 0-2; any field elements as the base (same formulas), or
+    Base8."""
     sk = _fr(dev)
-    sk[:, 0] = 0
+    sk[:, :3] = bn.to_tensor(fr.batch_to_limbs([0, 1, fr.P - 1]), dev)
     bits = fr.to_bits(sk, 254)
-    bx, by = _fr(dev), _fr(dev)       # any field elements: same formulas
+    if base8:
+        bx = fr.const(bjj.BASE8_X, (B,), dev)
+        by = fr.const(bjj.BASE8_Y, (B,), dev)
+    else:
+        bx, by = _fr(dev), _fr(dev)
     for a, b in zip(cuda_babyjubjub.ladder(bits, bx, by),
                     cuda_babyjubjub.ladder_plain(bits, bx, by)):
         _same(a, b)
-    x, y = bjj.base8_mul(sk[:, :1])              # sk = 0: the identity
-    assert (fr.batch_from_limbs(x), fr.batch_from_limbs(y)) == ([0], [1])
+    before = cuda_babyjubjub.ladder_affine.launches
+    aff = cuda_babyjubjub.ladder_affine(bits, bx, by)
+    assert cuda_babyjubjub.ladder_affine.launches == before + 1
+    for a, b in zip(aff, cuda_babyjubjub.ladder_affine_plain(bits, bx, by)):
+        _same(a, b)
+    if base8:
+        got = list(zip(fr.batch_from_limbs(aff[0][:, :3]),
+                       fr.batch_from_limbs(aff[1][:, :3])))
+        assert got == [bref.base8_mul(s % (1 << 254))
+                       for s in (0, 1, fr.P - 1)]
+
+
+def test_scalar_mul_goes_through_ladder_affine(dev):
+    sk = _fr(dev)
+    before = (cuda_babyjubjub.ladder_affine.launches,
+              cuda_babyjubjub.ladder.launches)
+    x, y = bjj.base8_mul(sk)
+    assert (cuda_babyjubjub.ladder_affine.launches,
+            cuda_babyjubjub.ladder.launches) == (before[0] + 1, before[1])
+    assert bool(bjj.on_curve(x, y).all())
 
 
 def test_wrappers_reject_wrong_dtype(dev):
