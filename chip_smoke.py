@@ -24,7 +24,8 @@ The script
    (tolerance 0: integer arithmetic) against its plain PyTorch version on
    the same CUDA tensors, and on 8+ lanes against the Python-int oracles;
    times both, and computes the kernel's bound from this run's shapes and
-   data (K4: the live levels of three depth profiles);
+   data (K4: the live levels of three depth profiles); K2 also at k = 256
+   and with an even-modulus lane, K3 also width by width;
 5. builds flagship inputs with the port's ingest, runs
    register_identity.forward on the card, checks the four public outputs
    against the oracles, the verdicts, two tampered lanes, and that the
@@ -165,19 +166,42 @@ def bound(nbytes, int_ops, mma_ops=0):
 
 
 def poseidon_ops(t, n_outs=1):
-    """int32 instructions of one K3 permutation per lane, with the entry
-    and exit conversions (csrc/poseidon.cuh)."""
+    """int32 instructions of the least work of one PoseidonEx permutation
+    per lane (the schedule of csrc/poseidon.cuh), with the entry and exit
+    conversions: an S-box x^5 is two squarings and a product; a full round
+    t S-boxes and a t x t mix, the last one only for the n_outs outputs; a
+    partial round one S-box, the 2t - 1 products of the s0 row and s1
+    column."""
     nP = pos.N_ROUNDS_P[t - 2]
-    muls = 8 * (3 * t + t * t) + nP * (2 * t + 2) + t + n_outs
-    adds = t + 7 * t * t + t * (t - 1) + nP * (2 * t - 1)
-    return muls * OPS_MONT_MUL + adds * OPS_FR_ADD
+    sboxes = 8 * t + nP
+    muls = (sboxes + 7 * t * t + n_outs * t + nP * (2 * t - 1)
+            + t + n_outs)
+    adds = 8 * t + 7 * t * (t - 1) + n_outs * (t - 1) + nP * (2 * t - 1)
+    return (2 * sboxes * OPS_MONT_SQR + muls * OPS_MONT_MUL
+            + adds * OPS_FR_ADD)
 
 
-def mulmod_ops(K):
-    """int32 instructions of one K2 Barrett mulmod on K-word numbers
-    (csrc/bignum.cuh): x*y, q1*mu, the low K+1 words of q3*n."""
-    partials = K * K + (K + 1) * (K + 1) + K + K * (K + 1) // 2
-    return partials * OPS_PARTIAL + 9 * (K + 1)
+def modexp_ops(K, e):
+    """int32 instructions of the least work of one K2 lane, x^e mod n on
+    K-word numbers: left to right, a squaring for each bit of e below the
+    top one and a product for each further set bit, each with its
+    reduction mod n. A product is K^2 partials, a squaring K(K+1)/2 (cross
+    terms once) and 2K to double them. A reduction takes the cheaper of
+    Montgomery's (K^2 partials of m * n and K quotient words m) and
+    Barrett's with the lane's mu (the top K + 1 words of q1 * mu, K^2/2 +
+    5K/2 + 1 partials, and q3 * n mod b^(K+1), K^2/2 + 3K/2), and a
+    compare, subtract and select of about 3K. No conversion is counted:
+    Barrett with the given mu needs none, and in Montgomery form the exit
+    can ride on the last product (csrc/bignum.cuh's bnw spends R^2 mod n,
+    the entry and the exit on top of this)."""
+    if e == 1:
+        return 0                                  # x itself
+    montgomery = K * K * OPS_PARTIAL + K
+    barrett = (K * K + 4 * K + 1) * OPS_PARTIAL
+    red = min(montgomery, barrett) + 3 * K
+    mul = K * K * OPS_PARTIAL + red
+    sqr = K * (K + 1) // 2 * OPS_PARTIAL + 2 * K + red
+    return ((e.bit_length() - 1) * sqr + (bin(e).count("1") - 1) * mul)
 
 
 def window_chain_muls(e):
@@ -336,9 +360,13 @@ def phase_sha(dev, rng):
     return entry
 
 
-def _rsa_case(dev, rng, k, exp):
+def _rsa_case(dev, rng, k, exp, even_lane=None):
+    """BATCH random odd k-limb moduli with the top bit set (the lane
+    even_lane made even) and signatures below them."""
     mods = [rng.getrandbits(16 * k - 1) | (1 << (16 * k - 1)) | 1
             for _ in range(BATCH)]
+    if even_lane is not None:
+        mods[even_lane] ^= 1
     sigs = [rng.randrange(m) for m in mods]
     args = [bn.to_tensor(bn.ints_to_limbs_batch(sigs, k), dev),
             bn.to_tensor(bn.ints_to_limbs_batch(mods, k), dev),
@@ -346,19 +374,46 @@ def _rsa_case(dev, rng, k, exp):
     return sigs, mods, args
 
 
+def rsa_bytes(args, k):
+    return 8 * (sum(a.numel() for a in args) + k * BATCH)
+
+
 def phase_rsa(dev, rng):
-    """RSA-2048 (k = 128) with e = 65537 at B = 1024, then k = 16 with
+    """RSA-2048 (k = 128) with e = 65537 at B = 1024 (the JSON entry), then
+    RSA-4096 (k = 256) timed beside it, a k = 128 batch with one
+    even-modulus lane (Barrett on one thread of its warp), and k = 16 with
     e in {3, 65537, 37187}."""
     sigs, mods, args = _rsa_case(dev, rng, 128, 65537)
     outs, entry = compare("pow_mod",
                           lambda: cuda_rsa.pow_mod(*args, 65537),
                           lambda: cuda_rsa.pow_mod_plain(*args, 65537),
-                          nbytes=8 * (sum(a.numel() for a in args)
-                                      + 128 * BATCH),
-                          int_ops=17 * mulmod_ops(64) * BATCH)
+                          nbytes=rsa_bytes(args, 128),
+                          int_ops=modexp_ops(64, 65537) * BATCH)
     got = bn.limbs_to_ints_batch(outs[0][:, :8])
     check(got == [pow(s, 65537, m) for s, m in zip(sigs[:8], mods[:8])],
           "pow_mod k=128 != pow()")
+    sigs, mods, args = _rsa_case(dev, rng, 256, 65537)
+    outs, e256 = compare("pow_mod",
+                         lambda: cuda_rsa.pow_mod(*args, 65537),
+                         lambda: cuda_rsa.pow_mod_plain(*args, 65537),
+                         nbytes=rsa_bytes(args, 256),
+                         int_ops=modexp_ops(128, 65537) * BATCH)
+    check(bn.limbs_to_ints_batch(outs[0][:, :8]) ==
+          [pow(s, 65537, m) for s, m in zip(sigs[:8], mods[:8])],
+          "pow_mod k=256 != pow()")
+    entry["k256"] = {key: e256[key] for key in
+                     ("ms", "plain_ms", "bound_ms", "bound_by")}
+    sigs, mods, args = _rsa_case(dev, rng, 128, 65537, even_lane=5)
+    out = cuda_rsa.pow_mod(*args, 65537)
+    check(torch.equal(out, cuda_rsa.pow_mod_plain(*args, 65537)),
+          "pow_mod k=128 with an even-modulus lane: kernel != plain")
+    check(bn.limbs_to_ints_batch(out[:, :8]) ==
+          [pow(s, 65537, m) for s, m in zip(sigs[:8], mods[:8])],
+          "pow_mod k=128 with an even-modulus lane != pow()")
+    entry["even_lane_ms"] = cuda_ms(lambda: cuda_rsa.pow_mod(*args, 65537),
+                                    10)
+    print(f"  pow_mod: a batch with one even-modulus lane bit-equal, "
+          f"{entry['even_lane_ms']:.4f} ms")
     for exp in (3, 65537, 37187):
         sigs, mods, args = _rsa_case(dev, rng, 16, exp)
         out = cuda_rsa.pow_mod(*args, exp)
@@ -367,7 +422,8 @@ def phase_rsa(dev, rng):
         check(bn.limbs_to_ints_batch(out[:, :8]) ==
               [pow(s, exp, m) for s, m in zip(sigs[:8], mods[:8])],
               f"pow_mod k=16 e={exp} != pow()")
-    entry["shape"] = "k=128 (RSA-2048), e=65537, B=1024"
+    entry["shape"] = ("k=128 (RSA-2048), e=65537, B=1024; k256: RSA-4096; "
+                      "even_lane_ms: k=128 with lane 5 even")
     return entry
 
 
@@ -378,7 +434,8 @@ def rand_fr(dev, rng):
 
 def phase_poseidon(dev, rng):
     """Poseidon at the flagship's widths: one step calls t = 2 twice, t = 3
-    and t = 4 once, t = 6 three times."""
+    and t = 4 once, t = 6 three times. The step's seven calls are the JSON
+    entry; each width is also timed alone."""
     cases = {}
     for t in (2, 3, 4, 6):
         cols, ts = zip(*[rand_fr(dev, rng) for _ in range(t - 1)])
@@ -398,6 +455,15 @@ def phase_poseidon(dev, rng):
         cols = cases[t][0]
         check(got == [pref.poseidon([c[i] for c in cols]) for i in range(8)],
               f"poseidon t={t} != oracle")
+    entry["widths_ms"] = {}
+    for t in (2, 3, 4, 6):
+        ms = cuda_ms(lambda: cuda_poseidon.poseidon_ex(cases[t][1]), 10)
+        bound_ms, _ = bound(8 * 16 * (t + 1) * BATCH
+                            + 4 * cuda_poseidon._pack(t, dev).numel(),
+                            poseidon_ops(t) * BATCH)
+        entry["widths_ms"][t] = ms
+        print(f"  poseidon_ex t={t} alone: {ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms")
     entry["shape"] = "B=1024, one step's seven calls: t=2,2,3,4,6,6,6"
     return entry
 

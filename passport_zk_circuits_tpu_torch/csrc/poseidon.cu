@@ -1,41 +1,53 @@
 // K3 and K4: the circomlib PoseidonEx permutation and the whole SMT root
-// climb, over one permutation body (poseidon.cuh). Replace the TPU kernels
-// _permute / poseidon_ex and smt_climb of
-// passport_zk_circuits_tpu/ops/pallas_poseidon.py.
+// climb (poseidon.cuh). Replace the TPU kernels _permute / poseidon_ex and
+// smt_climb of passport_zk_circuits_tpu/ops/pallas_poseidon.py.
 //
-// A permutation is ~65-70 rounds of dependent Montgomery products (t = 3:
-// about 380 of them, each 64 32-bit multiply-adds twice over), so both
-// kernels are bound by integer multiply latency and throughput, not bytes.
-// K3 runs one lane per thread, the round constants read from global memory
-// (every thread of a warp reads the same address). K4 runs a team of eight
-// threads a lane (fr_team.cuh), one word each, in blocks of one warp (four
-// lanes): B = 1024 is 256 blocks, so every SM gets work. Its t = 3 pack
-// (12 KB) sits in shared memory, where the eight threads of a team read
-// eight banks and the four teams of a warp share them. A warp skips a level
-// when none of its lanes is on the top path there (the hash would be
-// discarded), so a batch pays for the levels its proofs use.
-// The TPU route is capped at t <= 8 by an f32 exactness bound of the MXU;
-// K3 takes every t from 2 to 17.
+// A permutation is ~65-70 rounds of dependent Montgomery products (t = 6:
+// about 1,300 of them, each 64 32-bit multiply-adds twice over), so both
+// kernels are bound by the latency of integer multiply chains, not bytes:
+// at B = 1024 there are too few lanes to hide a chain behind others.
+//
+// K3 splits a lane's permutation over a group of threads
+// (poseidon.cuh, permute_split): the state's elements side by side, each
+// over a team of threads that holds its words (fr_slice.cuh): 2 x 4
+// threads at t = 2, 4 x 4 at t = 3, 4, 8 x 4 at t = 5-8, 16 x 2 at t =
+// 9-16, 32 x 1 at t = 17. A full round's mix gathers the elements by
+// shuffle and forms the element's output column from independent
+// products; a partial round's new element 0 is a shuffle butterfly. A
+// round then waits on about 4 team products instead of 2t + 2 products of
+// one thread, and B = 1024 lanes fill 256 (t = 2), 512 (t = 3, 4) or 1024
+// one-warp blocks. The constant pack (8 KB at t = 2 to 97 KB at t = 17) is
+// read through the read-only data path (const __restrict__) for every t:
+// a team reads a round's one or two entries, its threads on neighbouring
+// words, at the round's start, and their latency hides under the S-box's
+// three products.
+//
+// K4 runs a team of eight threads a lane (fr_team.cuh), one word each, in
+// blocks of one warp (four lanes): B = 1024 is 256 blocks, so every SM gets
+// work. Its t = 3 pack (12 KB) sits in shared memory, where the eight
+// threads of a team read eight banks and the four teams of a warp share
+// them. A warp skips a level when none of its lanes is on the top path
+// there (the hash would be discarded), so a batch pays for the levels its
+// proofs use. The TPU route is capped at t <= 8 by an f32 exactness bound
+// of the MXU; K3 takes every t from 2 to 17.
 #include <cuda_runtime.h>
 
 #include "fr_team.cuh"
 #include "poseidon.cuh"
 
 // state: (16 T, B) canonical limbs, element j in rows 16j..16j+15;
-// out: (16 n_outs, B)
+// out: (16 n_outs, B). One warp a block, 32 / GL lanes a warp.
 template <int T>
-__global__ void poseidon_kernel(const int64_t* __restrict__ state,
-                                int64_t* __restrict__ out,
-                                const uint32_t* __restrict__ pack, int nP,
-                                int n_outs, int B) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  fr::Fe st[T];
-  for (int j = 0; j < T; ++j)
-    st[j] = fr::to_mont(fr::load_limbs(state + (long)16 * j * B + lane, B));
-  poseidon::permute<T>(fr::Lane(), st, pack, nP);
-  for (int j = 0; j < n_outs; ++j)
-    fr::store_limbs(fr::from_mont(st[j]), out + (long)16 * j * B + lane, B);
+__global__ void __launch_bounds__(32)
+    poseidon_kernel(const int64_t* __restrict__ state,
+                    int64_t* __restrict__ out,
+                    const uint32_t* __restrict__ pack, int nP, int n_outs,
+                    int B) {
+  constexpr int W = poseidon::slice_words(T);
+  constexpr int GL = poseidon::lane_threads(T, W);
+  const long lane = ((long)blockIdx.x * blockDim.x + threadIdx.x) / GL;
+  poseidon::poseidon_lane<T, W>(wp::device_group<GL>(), state, out, pack,
+                                nP, n_outs, lane, B);
 }
 
 // sibs: (16 N, B) deepest level first; lr, top, inew: (N, B) flags;
@@ -68,15 +80,15 @@ __global__ void __launch_bounds__(32)
 
 #define PZK_POSEIDON_CASE(T)                                                \
   case T:                                                                   \
-    poseidon_kernel<T><<<grid, 128, 0, stream>>>(state, out, pack, nP,      \
-                                                 n_outs, B);                \
+    poseidon_kernel<T><<<((long)B * poseidon::lane_threads(                 \
+                              T, poseidon::slice_words(T)) + 31) / 32,      \
+                          32, 0, stream>>>(state, out, pack, nP, n_outs, B); \
     break;
 
 extern "C" int pzk_poseidon(const int64_t* state, int64_t* out,
                             const uint32_t* pack, int t, int nP, int n_outs,
                             int B, cudaStream_t stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  const int grid = (B + 127) / 128;
   switch (t) {
     PZK_POSEIDON_CASE(2) PZK_POSEIDON_CASE(3) PZK_POSEIDON_CASE(4)
     PZK_POSEIDON_CASE(5) PZK_POSEIDON_CASE(6) PZK_POSEIDON_CASE(7)

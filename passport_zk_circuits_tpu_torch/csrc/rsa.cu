@@ -1,53 +1,58 @@
 // K2: batched sig^e mod n with a modulus per lane (RSA verification).
 // Replaces the TPU kernel pow_mod of passport_zk_circuits_tpu/ops/pallas_rsa.py.
-// Same contract: 16-bit limbs at the boundary, Barrett with the host's
-// mu = floor(b^2k / n), canonical output; any exponent e >= 1.
+// Same contract: 16-bit limbs at the boundary, the host's Barrett constant
+// mu = floor(b^2k / n) per lane, canonical output; any exponent e >= 1,
+// any even k up to 512 limbs, any modulus with a non-zero top limb.
 //
-// A 2048-bit lane needs its base, modulus, mu, accumulator and Barrett
-// scratch: 9K + 4 = 580 words for K = 64, far past the 255 registers a
-// thread has. One thread per lane keeps the arithmetic sequential and
-// simple; the lane's numbers live in shared memory, interleaved by lane so
-// the threads of a warp touch neighbouring banks. That caps a block at about
-// 16 lanes of RSA-2048, so few warps run per SM: the kernel is bound by the
-// latency of its dependent multiply-add chains, not by bytes or issue rate.
+// One warp a lane (bignum.cuh, bnw::pow_lane): the lane's K = k/2 words
+// spread over the 32 threads, W = ceil(K / 32) a thread in registers, and
+// Montgomery products across the warp. R^2 mod n comes from the wrapper's
+// mu (one low-half product), n^-1 mod 2^32 by Newton, so a lane needs no
+// host work. A product is bound by the latency of its K outer steps, each
+// waiting on two shuffles (the quotient word's broadcast and the shift
+// down a word); B = 1024 lanes are 1024 one-warp blocks, about eight warps
+// on each of the 132 SMs. No shared memory: the first design, one thread a
+// lane, held RSA-2048's 580 words there, 17 lanes a block on 61 SMs.
+//
+// A lane with an even modulus (Montgomery needs an odd one) takes bn's
+// Barrett on its warp's thread 0, its words in the scratch buffer the
+// wrapper allocates (bn::powmod_lane_words(K) words a lane), so odd lanes
+// pay nothing for it. The branch is per warp, on the lane's own data.
 #include <cuda_runtime.h>
 
 #include "bignum.cuh"
 
-static int words_per_lane(int K) { return 4 * K + 1 + bn::mulmod_scratch_words(K); }
-
-__global__ void rsa_pow_kernel(const int64_t* __restrict__ sig,
-                               const int64_t* __restrict__ n,
-                               const int64_t* __restrict__ mu,
-                               int64_t* __restrict__ out, int k, int B,
-                               unsigned long long e) {
-  extern __shared__ uint32_t sm[];
-  const int L = blockDim.x;
-  const int lane = blockIdx.x * L + threadIdx.x;
-  if (lane >= B) return;
-  const int K = k / 2;
-  uint32_t* S = sm + threadIdx.x;
-  uint32_t* N = S + K * L;
-  uint32_t* MU = N + K * L;
-  uint32_t* ACC = MU + (K + 1) * L;
-  uint32_t* SCR = ACC + K * L;
-  bn::load_limbs(sig + lane, B, k, S, L);
-  bn::load_limbs(n + lane, B, k, N, L);
-  bn::load_limbs(mu + lane, B, k + 1, MU, L);
-  bn::powmod(S, e, N, MU, K, ACC, SCR, L);
-  bn::store_limbs(ACC, L, k, out + lane, B);
+// (32, 1): without the second bound ptxas held W = 8 to 72 registers and
+// spilled; with it W = 8 takes 82 and none
+template <int W>
+__global__ void __launch_bounds__(32, 1)
+    rsa_pow_kernel(const int64_t* __restrict__ sig,
+                   const int64_t* __restrict__ n,
+                   const int64_t* __restrict__ mu, int64_t* __restrict__ out,
+                   int k, int B, unsigned long long e,
+                   uint32_t* __restrict__ scratch) {
+  bnw::pow_lane<W>(wp::device_group<32>(), sig, n, mu, out, k, blockIdx.x,
+                   B, e, scratch);
 }
 
-// k: 16-bit limbs per number (even); mu has k + 1 limbs.
+#define PZK_RSA_CASE(W)                                                   \
+  case W:                                                                 \
+    rsa_pow_kernel<W><<<B, 32, 0, stream>>>(sig, n, mu, out, k, B, e,     \
+                                            scratch);                     \
+    break;
+
+// k: 16-bit limbs per number (even, at most 512); mu has k + 1 limbs;
+// scratch: B * bn::powmod_lane_words(k / 2) words.
 extern "C" int pzk_rsa_pow(const int64_t* sig, const int64_t* n,
                            const int64_t* mu, int64_t* out, int k, int B,
-                           unsigned long long e, cudaStream_t stream) {
-  const int bytes = 4 * words_per_lane(k / 2);
-  int lanes = 40960 / bytes;
-  if (lanes > 128) lanes = 128;
-  if (lanes < 1) lanes = 1;
-  if (B > 0)
-    rsa_pow_kernel<<<(B + lanes - 1) / lanes, lanes, lanes * bytes, stream>>>(
-        sig, n, mu, out, k, B, e);
+                           unsigned long long e, uint32_t* scratch,
+                           cudaStream_t stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  switch ((k / 2 + 31) / 32) {
+    PZK_RSA_CASE(1) PZK_RSA_CASE(2) PZK_RSA_CASE(3) PZK_RSA_CASE(4)
+    PZK_RSA_CASE(5) PZK_RSA_CASE(6) PZK_RSA_CASE(7) PZK_RSA_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

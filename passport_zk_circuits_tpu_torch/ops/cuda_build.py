@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pzk_sha256": [_P, _P, _I, _I, _I, _P],
-    "pzk_rsa_pow": [_P, _P, _P, _P, _I, _I, ctypes.c_ulonglong, _P],
+    "pzk_rsa_pow": [_P, _P, _P, _P, _I, _I, ctypes.c_ulonglong, _P, _P],
     "pzk_poseidon": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pzk_smt_climb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pzk_ladder": [_P, _P, _P, _P, _I, _I, _P],

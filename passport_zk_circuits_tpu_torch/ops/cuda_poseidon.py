@@ -1,16 +1,21 @@
 """K3 and K4 wrappers: PoseidonEx permutation and the whole SMT root climb
-(csrc/poseidon.cu, one permutation body in csrc/poseidon.cuh).
+(csrc/poseidon.cu, the permutation's schedule in csrc/poseidon.cuh).
 
 Replace ``poseidon_ex`` / ``_permute`` and ``smt_climb`` of
 ``passport_zk_circuits_tpu/ops/pallas_poseidon.py``. On the H100 a
 permutation is a chain of ~65-70 rounds of dependent 256-bit Montgomery
-products: the kernels are bound by 32-bit integer multiply throughput and
-latency, not by memory. K3 runs one thread per lane. K4 runs the whole
-climb in one launch with a team of eight threads a lane (csrc/fr_team.cuh),
-one warp (four lanes) a block, the t = 3 constants in shared memory, and
-skips a level for a warp when none of its lanes is on the top path there.
-The TPU route is capped at t <= 8 by the MXU's f32 exactness; K3 takes
-every t from 2 to 17.
+products: the kernels are bound by the latency of those chains, not by
+memory, since B = 1024 lanes are too few to hide one chain behind others.
+K3 splits a lane's permutation over a group of threads: the state's
+elements side by side, each over a team of threads that holds its words
+(4 threads at t <= 8, 2 at t <= 16, 1 at t = 17), so a round waits on
+about 4 team products instead of 2t + 2 products of one thread, and a
+batch of 1024 fills 256 to 1024 one-warp blocks. K4 runs the whole
+climb in one launch with a team of eight threads a lane
+(csrc/fr_team.cuh), one warp (four lanes) a block, the t = 3 constants in
+shared memory, and skips a level for a warp when none of its lanes is on
+the top path there. The TPU route is capped at t <= 8 by the MXU's f32
+exactness; K3 takes every t from 2 to 17.
 """
 
 from __future__ import annotations

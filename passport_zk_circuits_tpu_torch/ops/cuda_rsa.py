@@ -1,16 +1,17 @@
 """K2 wrapper: batched sig^e mod n, modulus per lane (csrc/rsa.cu).
 
 Replaces ``pow_mod`` of ``passport_zk_circuits_tpu/ops/pallas_rsa.py``, with
-the same contract: 16-bit limbs, Barrett with the host's per-lane
+the same contract: 16-bit limbs, the host's per-lane Barrett constant
 mu = floor(b^2k / n), canonical output. The TPU kernel runs only e = 3 and
 e = 65537 on hardware; this one takes any exponent e >= 1.
 
-On the H100 a 2048-bit lane's numbers and Barrett scratch (580 words) are
-far past a thread's 255 registers. The kernel runs one lane per thread with
-the lane's words in shared memory, interleaved across the lanes of a block;
-that holds a block to about 16 lanes, so it is bound by the latency of long
-dependent multiply-add chains on few warps per SM. Parallelising one lane's
-product over a warp is the later speed-up.
+On the H100 the kernel runs one warp a lane, the lane's numbers spread
+over the 32 threads in registers, and multiplies in Montgomery form across
+the warp (csrc/bignum.cuh, ``bnw``): R^2 mod n is the negated low half of
+mu * n, so a lane needs no host work. A product is bound by the latency of
+its K outer steps, each waiting on two shuffles; B = 1024 lanes fill the
+card with 1024 warps. A lane with an even modulus takes the Barrett
+``bn::powmod`` on one thread, in a scratch buffer this wrapper allocates.
 """
 
 from __future__ import annotations
@@ -44,11 +45,14 @@ def pow_mod(sig, n_limbs, mu_limbs, exp: int):
         raise ValueError("pow_mod: need n (k, B) and mu (k+1, B)")
     cuda_build.require_cuda_int64("pow_mod", sig, n_limbs, mu_limbs)
     out = torch.empty_like(sig)
+    # an even-modulus lane's words (csrc/bignum.cuh, bn::powmod_lane_words)
+    scratch = torch.empty(B * (9 * (k // 2) + 4), dtype=torch.int32,
+                          device=sig.device)
     lib = cuda_build.library()
     with torch.cuda.device(sig.device):
         rc = lib.pzk_rsa_pow(sig.data_ptr(), n_limbs.data_ptr(),
                              mu_limbs.data_ptr(), out.data_ptr(), k, B, exp,
-                             cuda_build.stream_of(sig))
+                             scratch.data_ptr(), cuda_build.stream_of(sig))
     cuda_build.check(rc, "pow_mod")
     pow_mod.launches += 1
     return out

@@ -5,11 +5,13 @@ __device__ and free of CUDA intrinsics, so g++ builds them (through
 tests/torch_csrc_host_check.cc) into a small host library. Each check here
 holds one piece of kernel arithmetic against the port's plain PyTorch
 version and the Python-int oracle, bit for bit (tolerance 0: everything is
-integer arithmetic). The team arithmetic of fr_team.cuh (K4, K5: eight
-threads a lane, joined by shuffles and ballots) runs here with the team's
-threads as coroutines that take turns at every shuffle and ballot. This catches arithmetic faults before they reach the
-card; the kernels themselves are built and compared on the card by
-chip_smoke.py.
+integer arithmetic). The code that splits a lane over several threads,
+joined by shuffles and ballots, runs here with those threads as coroutines
+that take turns at every exchange: the team arithmetic of fr_team.cuh (K4,
+K5: eight threads a lane), K3's split permutation (warp.cuh groups of 2 to
+32 threads) and K2's Montgomery modexp across a warp (32 threads). This
+catches arithmetic faults before they reach the card; the kernels
+themselves are built and compared on the card by chip_smoke.py.
 """
 
 import ctypes
@@ -270,3 +272,81 @@ def test_team_ladder(lib, affine):
         assert list(zip(fr.batch_from_limbs(torch.tensor(out[0])),
                         fr.batch_from_limbs(torch.tensor(out[1])))) == \
             [bref.scalar_mul(s, pt) for s in sks]
+
+
+@pytest.mark.parametrize("t", [2, 3, 6, 12, 17])
+def test_poseidon_split_lane(lib, t):
+    """K3's lane body (poseidon::poseidon_lane: the permutation split over
+    a group of threads, each state element over a team of 4, 4, 4, 2 and 1
+    threads at these widths) on three lanes with n_outs = t and a non-zero
+    initial state, against the plain version and poseidon_ref; a fourth
+    lane past the batch runs on the last one and stores nothing."""
+    B = 3
+    cols = [[rng.randrange(fr.P) for _ in range(B)] for _ in range(t)]
+    cols[1][0] = 0
+    state = np.ascontiguousarray(np.concatenate(
+        [fr.batch_to_limbs(c) for c in cols]).astype(np.int64))
+    pack = np.ascontiguousarray(cuda_poseidon._pack(
+        t, torch.device("cpu")).numpy().view(np.uint32))
+    out = np.zeros((16 * t, B), np.int64)
+    assert lib.host_poseidon_split(_ptr(state), _ptr(pack, _PU32), t,
+                                   pos.N_ROUNDS_P[t - 2], t, B,
+                                   _ptr(out)) == 0
+    ins = [_t(c) for c in cols[1:]]
+    plain = cuda_poseidon.poseidon_ex_plain(ins, t, _t(cols[0]))
+    np.testing.assert_array_equal(out.reshape(t, 16, B).transpose(1, 0, 2),
+                                  plain.numpy())
+    for i in range(B):
+        assert [_int(out[16 * j:16 * j + 16, i]) for j in range(t)] == \
+            pref.poseidon_ex([c[i] for c in cols[1:]], t, cols[0][i])
+
+
+def _rsa_lanes(k, B):
+    """B odd k-limb moduli with the top bit set, lane 2 made even; sigs 0,
+    1, n - 1 in lanes 0, 1, 3, the rest random below n."""
+    mods = [rng.getrandbits(16 * k - 1) | (1 << (16 * k - 1)) | 1
+            for _ in range(B)]
+    mods[2] ^= 1
+    sigs = [rng.randrange(m) for m in mods]
+    sigs[0], sigs[1], sigs[3] = 0, 1, mods[3] - 1
+    arrs = [np.ascontiguousarray(a.astype(np.int64)) for a in (
+        bn.ints_to_limbs_batch(sigs, k), bn.ints_to_limbs_batch(mods, k),
+        bn.barrett_mu_batch(mods, k))]
+    return sigs, mods, arrs
+
+
+@pytest.mark.parametrize("k", [16, 128, 308])
+def test_warp_r2_mod_n(lib, k):
+    """R^2 mod n = (-mu * n) mod R, R = 2^(16k), from the Barrett constant
+    alone (bnw::r2_mod_n across a warp), against Python ints."""
+    _, mods, (_, n, mu) = _rsa_lanes(k, 5)
+    for i, m in enumerate(mods):
+        if not m & 1:
+            continue
+        out = np.zeros(k, np.int64)
+        assert lib.host_warp_r2(_ptr(np.ascontiguousarray(n[:, i])),
+                                _ptr(np.ascontiguousarray(mu[:, i])), k,
+                                _ptr(out)) == 0
+        assert _int(out) == pow(2, 32 * k, m)
+
+
+@pytest.mark.parametrize("k,exps", [(16, (1, 3, 65537, 37187, None)),
+                                    (128, (65537, None)), (308, (3,))])
+def test_warp_pow_mod(lib, k, exps):
+    """K2's lane body (bnw::pow_lane: Montgomery across a warp of 32
+    threads) on five lanes, one with an even modulus (Barrett on one
+    thread), sig 0, 1 and n - 1 among them, against the plain version and
+    Python pow; None is a seeded odd 64-bit exponent."""
+    B = 5
+    sigs, mods, (s, n, mu) = _rsa_lanes(k, B)
+    for e in exps:
+        e = e or rng.getrandbits(64) | 1 | (1 << 63)
+        out = np.zeros((k, B), np.int64)
+        assert lib.host_warp_pow_mod(_ptr(s), _ptr(n), _ptr(mu), k, B,
+                                     ctypes.c_ulonglong(e), _ptr(out)) == 0
+        assert bn.limbs_to_ints_batch(out) == \
+            [pow(x, e, m) for x, m in zip(sigs, mods)], e
+        if e < 1 << 17:
+            plain = bn.mod_pow(bn.to_tensor(s, "cpu"), e,
+                               bn.to_tensor(n, "cpu"), bn.to_tensor(mu, "cpu"))
+            np.testing.assert_array_equal(out, plain.numpy())

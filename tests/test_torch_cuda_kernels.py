@@ -61,27 +61,82 @@ def test_sha_kernel(dev, nb, algo):
     _same(out, cuda_sha2.sha2_32_chunks_plain(words, algo))
 
 
-@pytest.mark.parametrize("k,exp", [(16, 3), (16, 65537), (16, 37187),
-                                   (128, 65537), (256, 65537)])
-def test_rsa_kernel(dev, k, exp):
+E_RAND = random.Random(64).getrandbits(64) | 1 | (1 << 63)   # odd, 64 bits
+
+
+def _rsa_batch(dev, k, n_lanes, even_lane=None):
+    """n_lanes odd k-limb moduli with the top bit set (one made even);
+    signatures 0, 1 and n - 1 in lanes 0-2 of a batch of three or more, the
+    rest random below n."""
     mods = [rng.getrandbits(16 * k - 1) | (1 << (16 * k - 1)) | 1
-            for _ in range(B)]
+            for _ in range(n_lanes)]
+    if even_lane is not None:
+        mods[even_lane] ^= 1
     sigs = [rng.randrange(m) for m in mods]
+    if n_lanes >= 3:
+        sigs[:3] = [0, 1, mods[2] - 1]
     args = [bn.to_tensor(a, dev) for a in (
         bn.ints_to_limbs_batch(sigs, k), bn.ints_to_limbs_batch(mods, k),
         bn.barrett_mu_batch(mods, k))]
+    return sigs, mods, args
+
+
+def _check_rsa(dev, k, exp, n_lanes, even_lane=None):
+    sigs, mods, args = _rsa_batch(dev, k, n_lanes, even_lane)
+    before = cuda_rsa.pow_mod.launches
     out = cuda_rsa.pow_mod(*args, exp)
+    assert cuda_rsa.pow_mod.launches == before + 1
     _same(out, cuda_rsa.pow_mod_plain(*args, exp))
-    assert bn.limbs_to_ints_batch(out[:, :4]) == \
-        [pow(s, exp, m) for s, m in zip(sigs[:4], mods[:4])]
+    assert bn.limbs_to_ints_batch(out) == \
+        [pow(s, exp, m) for s, m in zip(sigs, mods)]
 
 
+@pytest.mark.parametrize("exp", [3, 65537, 37187, E_RAND])
+@pytest.mark.parametrize("k", [16, 32, 128, 192, 256, 308, 512])
+def test_rsa_kernel(dev, k, exp):
+    """Every k and exponent on 33 lanes (a ragged batch), sig 0, 1 and
+    n - 1 among them and lane 7's modulus even (Barrett on one thread of
+    its warp), against the plain version and Python pow; k = 192 is 96
+    words, three a thread, k = 308 154 words, five a thread with the last
+    outer step part-full and the top thread empty, and k = 512 (RSA-8192)
+    the widest the kernel takes, eight a thread."""
+    _check_rsa(dev, k, exp, 33, even_lane=7)
+
+
+@pytest.mark.parametrize("n_lanes", [1, 33, 1024])
+@pytest.mark.parametrize("k", [16, 32, 128, 192, 256])
+def test_rsa_kernel_batch_sizes(dev, k, n_lanes):
+    """B = 1, 33 and 1024 at e = 65537, the even lane in the larger
+    batches."""
+    _check_rsa(dev, k, 65537, n_lanes,
+               even_lane=None if n_lanes == 1 else 3)
+
+
+def test_rsa_kernel_even_modulus_alone_and_e1(dev):
+    """A batch of one even-modulus lane; e = 1 gives sig back as it is,
+    reduced or not, as bn.mod_pow does."""
+    _check_rsa(dev, 128, 65537, 1, even_lane=0)
+    sigs, mods, args = _rsa_batch(dev, 32, 5, even_lane=2)
+    args[0][:, 4] = args[1][:, 4]                     # sig = n: not reduced
+    out = cuda_rsa.pow_mod(*args, 1)
+    _same(out, cuda_rsa.pow_mod_plain(*args, 1))
+    _same(out, args[0])
+
+
+@pytest.mark.parametrize("n_lanes", [1, 5, 1025])
 @pytest.mark.parametrize("t", list(range(2, 18)))
-def test_poseidon_kernel_every_width(dev, t):
-    inputs = torch.stack([_fr(dev) for _ in range(t - 1)], 1)
-    n_outs = min(t, 2)
-    _same(cuda_poseidon.poseidon_ex(inputs, n_outs),
-          cuda_poseidon.poseidon_ex_plain(inputs, n_outs))
+def test_poseidon_kernel_every_width(dev, t, n_lanes):
+    """Every width at B = 1, 5 and 1025 (the last warp partial for every
+    number of lanes a warp), n_outs = t, against the plain version, and on
+    three lanes against poseidon_ref."""
+    inputs = torch.stack([_fr(dev, n_lanes) for _ in range(t - 1)], 1)
+    before = cuda_poseidon.poseidon_ex.launches
+    out = cuda_poseidon.poseidon_ex(inputs, t)
+    assert cuda_poseidon.poseidon_ex.launches == before + 1
+    _same(out, cuda_poseidon.poseidon_ex_plain(inputs, t))
+    for i in range(min(n_lanes, 3)):
+        ins = fr.batch_from_limbs(inputs[:, :, i])
+        assert fr.batch_from_limbs(out[:, :, i]) == pref.poseidon_ex(ins, t)
 
 
 def test_poseidon_kernel_initial_state_and_oracle(dev):

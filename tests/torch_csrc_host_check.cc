@@ -16,52 +16,60 @@
 #include "loop_bodies.cuh"
 #include "poseidon.cuh"
 #include "sha256.cuh"
+#include "warp.cuh"
 
-// A team's TEAM threads as coroutines on one host thread, with a slot
-// each: sync() passes control to the next thread, round robin, so when a
-// thread's sync() returns, every thread has reached the same point.
+// A group of n threads (a team, a K3 group, a warp) as coroutines on one
+// host thread, with a slot each: sync() passes control to the next thread,
+// round robin, so when a thread's sync() returns, every thread has reached
+// the same point.
 namespace {
+constexpr unsigned MAX_THREADS = 32;
+
 struct Exchange {
-  ucontext_t main_ctx, ctx[frt::TEAM];
-  unsigned cur = 0;
-  uint32_t slot[frt::TEAM];
+  ucontext_t main_ctx, ctx[MAX_THREADS];
+  unsigned n = 0, cur = 0;
+  uint32_t slot[MAX_THREADS];
 
   void sync() {
     const unsigned me = cur;
-    cur = (me + 1) % frt::TEAM;
+    cur = (me + 1) % n;
     swapcontext(&ctx[me], &ctx[cur]);
   }
 };
 
-Exchange* current_ex = nullptr;                              // the team run
-const std::function<void(const frt::Team&)>* current_fn = nullptr;
+Exchange* current_ex = nullptr;                              // the group run
+const std::function<void(unsigned)>* current_fn = nullptr;
 
-void run_thread(int j) { (*current_fn)(frt::make_team((unsigned)j, 0)); }
+void run_thread(int j) { (*current_fn)((unsigned)j); }
 
-// Run fn(team) as the TEAM threads of one team, in step at every shuffle
-// and ballot. A thread that returns hands over to the next; the last one
-// back to the caller.
-void run_team(const std::function<void(const frt::Team&)>& fn) {
+// Run fn(i) as threads i = 0..n-1 of one group, in step at every exchange.
+// A thread that returns hands over to the next; the last one back to the
+// caller.
+void run_threads(unsigned n, const std::function<void(unsigned)>& fn) {
   Exchange ex;
-  std::vector<std::vector<char>> stacks(frt::TEAM,
-                                        std::vector<char>(1 << 18));
-  for (int j = 0; j < frt::TEAM; ++j) {
+  ex.n = n;
+  std::vector<std::vector<char>> stacks(n, std::vector<char>(1 << 18));
+  for (unsigned j = 0; j < n; ++j) {
     getcontext(&ex.ctx[j]);
     ex.ctx[j].uc_stack.ss_sp = stacks[j].data();
     ex.ctx[j].uc_stack.ss_size = stacks[j].size();
-    ex.ctx[j].uc_link = j + 1 < frt::TEAM ? &ex.ctx[j + 1] : &ex.main_ctx;
-    makecontext(&ex.ctx[j], (void (*)())run_thread, 1, j);
+    ex.ctx[j].uc_link = j + 1 < n ? &ex.ctx[j + 1] : &ex.main_ctx;
+    makecontext(&ex.ctx[j], (void (*)())run_thread, 1, (int)j);
   }
   current_ex = &ex;
   current_fn = &fn;
   swapcontext(&ex.main_ctx, &ex.ctx[0]);
   current_ex = nullptr;
 }
-}  // namespace
 
-// The team exchange fr_team.cuh asks a host build for
-namespace frt {
-uint32_t team_from(unsigned j, uint32_t x, unsigned src) {
+// fr_team.cuh's team: TEAM threads, thread j holding word j
+void run_team(const std::function<void(const frt::Team&)>& fn) {
+  run_threads(frt::TEAM, [&](unsigned j) {
+    fn(frt::make_team(wp::Group<frt::TEAM>{j, 0}));
+  });
+}
+
+uint32_t exchange_from(unsigned j, uint32_t x, unsigned src) {
   current_ex->slot[j] = x;
   current_ex->sync();
   const uint32_t r = current_ex->slot[src];
@@ -69,15 +77,75 @@ uint32_t team_from(unsigned j, uint32_t x, unsigned src) {
   return r;
 }
 
-unsigned team_ballot(unsigned j, bool p) {
+unsigned exchange_ballot(unsigned j, bool p) {
   current_ex->slot[j] = p;
   current_ex->sync();
   unsigned m = 0;
-  for (int k = 0; k < TEAM; ++k) m |= (current_ex->slot[k] != 0 ? 1u : 0u) << k;
+  for (unsigned k = 0; k < current_ex->n; ++k)
+    m |= (current_ex->slot[k] != 0 ? 1u : 0u) << k;
   current_ex->sync();
   return m;
 }
-}  // namespace frt
+}  // namespace
+
+// The exchange warp.cuh asks a host build for
+namespace wp {
+uint32_t group_from(unsigned i, uint32_t x, unsigned src) {
+  return exchange_from(i, x, src);
+}
+unsigned group_ballot(unsigned i, bool p) { return exchange_ballot(i, p); }
+}  // namespace wp
+
+// K3's lane body (poseidon::poseidon_lane) on lanes 0..B of a batch of B,
+// the kernel's layouts, a group of lane_threads(T) coroutines a lane; lane
+// B runs past the batch, on lane B - 1, and must store nothing
+template <int T>
+void split_lanes(const int64_t* state, const uint32_t* pack, int nP,
+                 int n_outs, int B, int64_t* out) {
+  constexpr int W = poseidon::slice_words(T);
+  constexpr int GL = poseidon::lane_threads(T, W);
+  for (long lane = 0; lane <= B; ++lane)
+    run_threads(GL, [&](unsigned i) {
+      poseidon::poseidon_lane<T, W>(wp::Group<GL>{i, 0}, state, out, pack,
+                                    nP, n_outs, lane, B);
+    });
+}
+
+// K2's lane body (bnw::pow_lane) on B lanes, a warp of coroutines a lane
+template <int W>
+void warp_pow_lanes(const int64_t* sig, const int64_t* n, const int64_t* mu,
+                    int k, int B, unsigned long long e, int64_t* out) {
+  std::vector<uint32_t> scratch((size_t)B * bn::powmod_lane_words(k / 2));
+  for (long lane = 0; lane < B; ++lane)
+    run_threads(32, [&](unsigned l) {
+      bnw::pow_lane<W>(bnw::Warp{l, 0}, sig, n, mu, out, k, lane, B, e,
+                       scratch.data());
+    });
+}
+
+// bnw::r2_mod_n on one lane: n (k limbs), mu (k + 1 limbs) -> k limbs
+template <int W>
+void warp_r2(const int64_t* n, const int64_t* mu, int k, int64_t* out) {
+  run_threads(32, [&](unsigned l) {
+    bnw::Mod<W> M;
+    M.g = bnw::Warp{l, 0};
+    M.K = k / 2;
+    uint32_t m[W], r2[W];
+    for (int w = 0; w < W; ++w) {
+      const int j = (int)l * W + w;
+      M.n[w] = j < M.K ? bnw::load_word(n, 1, k, j) : 0u;
+      m[w] = j < M.K ? bnw::load_word(mu, 1, k + 1, j) : 0u;
+    }
+    bnw::r2_mod_n(M, m, r2);
+    for (int w = 0; w < W; ++w) {
+      const int j = (int)l * W + w;
+      if (j < M.K) {
+        out[2 * j] = r2[w] & 0xFFFF;
+        out[2 * j + 1] = r2[w] >> 16;
+      }
+    }
+  });
+}
 
 static fr::Fe load(const int64_t* x) { return fr::to_mont(fr::load_limbs(x, 1)); }
 static void store(const fr::Fe& a, int64_t* x) { fr::store_limbs(fr::from_mont(a), x, 1); }
@@ -244,6 +312,42 @@ int host_loop(int body, const int64_t* a, const int64_t* c, int n_iter,
                    out, 1);                                            \
     return 0;
     PZK_LOOP_BODIES(HOST_LOOP_CASE)
+  }
+  return -1;
+}
+
+// K3 at width t on B lanes: state (16 t, B), out (16 n_outs, B). Returns
+// -1 for a width the host build does not instantiate.
+int host_poseidon_split(const int64_t* state, const uint32_t* pack, int t,
+                        int nP, int n_outs, int B, int64_t* out) {
+  switch (t) {
+    case 2: split_lanes<2>(state, pack, nP, n_outs, B, out); return 0;
+    case 3: split_lanes<3>(state, pack, nP, n_outs, B, out); return 0;
+    case 6: split_lanes<6>(state, pack, nP, n_outs, B, out); return 0;
+    case 12: split_lanes<12>(state, pack, nP, n_outs, B, out); return 0;
+    case 17: split_lanes<17>(state, pack, nP, n_outs, B, out); return 0;
+  }
+  return -1;
+}
+
+// K2 on B lanes of k limbs: sig, n, out (k, B), mu (k + 1, B). Returns -1
+// for a width W = ceil(k / 64) the host build does not instantiate (it
+// has 1, 2 and 5: k = 308 is 154 words, the top thread's empty).
+int host_warp_pow_mod(const int64_t* sig, const int64_t* n, const int64_t* mu,
+                      int k, int B, unsigned long long e, int64_t* out) {
+  switch ((k / 2 + 31) / 32) {
+    case 1: warp_pow_lanes<1>(sig, n, mu, k, B, e, out); return 0;
+    case 2: warp_pow_lanes<2>(sig, n, mu, k, B, e, out); return 0;
+    case 5: warp_pow_lanes<5>(sig, n, mu, k, B, e, out); return 0;
+  }
+  return -1;
+}
+
+int host_warp_r2(const int64_t* n, const int64_t* mu, int k, int64_t* out) {
+  switch ((k / 2 + 31) / 32) {
+    case 1: warp_r2<1>(n, mu, k, out); return 0;
+    case 2: warp_r2<2>(n, mu, k, out); return 0;
+    case 5: warp_r2<5>(n, mu, k, out); return 0;
   }
   return -1;
 }
