@@ -9,7 +9,8 @@ launch counter set to 0 just before it and read just after:
 * the witness step: one batched RegisterIdentity witness step on the
   flagship config registerIdentity_1_256_3_4_600_248_1_1496_3_256
   (RSA-2048 PKCS#1 v1.5, e = 65537, SHA-256, TD3, RSA-1024 active auth,
-  80-level SMT) at batch 1024: K1-K4 and K5's affine entry;
+  80-level SMT) at batch 1024: K1's many-message entry (the step's four
+  SHA messages in one launch), K2-K4 and K5's affine entry;
 * the field-muls/s path: tools/microbench_field at batch 1024, 256
   chained products a call: K6, K7, K8;
 * the probe battery: tools/probe_nvcc: K9.
@@ -24,14 +25,20 @@ The script
    (tolerance 0: integer arithmetic) against its plain PyTorch version on
    the same CUDA tensors, and on 8+ lanes against the Python-int oracles;
    times both, and computes the kernel's bound from this run's shapes and
-   data (K4: the live levels of three depth profiles); K2 also at k = 256
-   and with an even-modulus lane, K3 also width by width;
+   data (K4: the live levels of three depth profiles); K1's one launch
+   beside its four-call route, with the critical-path floor of a lane's
+   rounds; K2 also at k = 256 and with an even-modulus lane, K3 also width
+   by width; the device time of one call of K1 (both routes), K6, K7, K8
+   and K9 from torch.profiler, each held to its kernels' names, and every
+   launch of that session to its kernel record; registers and spills of K1 and K7
+   from nvcc's -Xptxas -v (no spills);
 5. builds flagship inputs with the port's ingest, runs
    register_identity.forward on the card, checks the four public outputs
    against the oracles, the verdicts, two tampered lanes, and that the
-   launch counters of K1-K4 and of K5's affine entry moved during that
-   forward; counts the CUDA kernels of one forward (torch.profiler) and
-   times its stages;
+   launch counters of K1's many-message entry (once), K2-K4 and K5's
+   affine entry moved during that forward (K1's per-message entry and K5's
+   extended one not at all); counts the CUDA kernels of one forward
+   (torch.profiler) and times its stages;
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
@@ -83,6 +90,9 @@ SEED = 1
 
 # name -> (wrapper, kernel source, TPU kernel's pallas_call it replaces)
 KERNELS = {
+    "sha2_32_chunks_many": (cuda_sha2.sha2_32_chunks_many,
+                            "passport_zk_circuits_tpu_torch/csrc/sha256.cu",
+                            "passport_zk_circuits_tpu/ops/pallas_sha2.py:70"),
     "sha2_32_chunks": (cuda_sha2.sha2_32_chunks,
                        "passport_zk_circuits_tpu_torch/csrc/sha256.cu",
                        "passport_zk_circuits_tpu/ops/pallas_sha2.py:70"),
@@ -114,9 +124,19 @@ KERNELS = {
               "passport_zk_circuits_tpu_torch/csrc/probe.cu",
               "tools/probe_mosaic.py:38"),
 }
-WITNESS_KERNELS = ("sha2_32_chunks", "pow_mod", "poseidon_ex", "smt_climb",
-                   "ladder_affine")
+WITNESS_KERNELS = ("sha2_32_chunks_many", "pow_mod", "poseidon_ex",
+                   "smt_climb", "ladder_affine")
+# held against their plain versions only: the witness step takes the
+# many-message K1 entry and K5's affine one
+OFF_PATH = ("sha2_32_chunks", "ladder")
 FIELD_KERNELS = ("mul", "mul_chain", "run_loop")
+# K9's kernel probes -> the csrc/probe.cu kernel each launches
+PROBE_KERNELS = {"basic": "basic_kernel", "mul_wide": "mul_wide_kernel",
+                 "smem_dynamic_large": "smem_kernel",
+                 "shfl_carry": "shfl_carry_kernel",
+                 "cp_async": "cp_async_kernel",
+                 "bulk_copy_mbarrier": "bulk_copy_kernel",
+                 "mma_s8": "mma_s8_kernel", "cluster_dsmem": "cluster_kernel"}
 
 # -- the least time the card could take (bound_ms) ---------------------------
 # The larger of the bytes a kernel must move (each int64 input read once,
@@ -144,6 +164,11 @@ OPS_SMALL_MUL = 17 * OPS_PARTIAL + 16   # by a constant below 2^32 (the
                                         # the final subtract and select
 OPS_FR_ADD = 24         # fr::add / sub: 8 add-with-carry, 8 subtract, select
 OPS_SHA_BLOCK = 64 * 15 + 48 * 10       # 64 rounds, 48 schedule words
+# A lane's SHA rounds are one dependent chain. Its least length a round:
+# e's rotations (SHF), their XOR with ch (LOP3), the three-input add into
+# the next e (IADD3), h + K + w being ready beforehand; 4 clocks each, the
+# latency of a dependent integer instruction on the SM (Volta to Hopper).
+SHA_ROUND_CHAIN_CLOCKS = 3 * 4
 # BabyJubJub in extended coordinates: the addition add-2008-hwcd, 9
 # products, the products by a and by d, 7 additions; the doubling
 # dbl-2008-hwcd, 4 products, 4 squarings, the product by a, 7 additions; the
@@ -252,6 +277,12 @@ def ladder_ops(bits, affine):
             + lanes * OPS_MONT_MUL)
 
 
+def sha_floor_ms(nb):
+    """The critical-path floor of a lane of nb SHA blocks: its 64 nb
+    rounds, one after another, at SHA_ROUND_CHAIN_CLOCKS each."""
+    return 64 * nb * SHA_ROUND_CHAIN_CLOCKS / CARD["sm_hz"] * 1e3
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -321,13 +352,94 @@ def compare(name, kernel_fn, plain_fn, nbytes, int_ops, reps=10,
     return k_out, entry
 
 
+def to_profile(entry, fn, symbols):
+    """Mark entry's kernel for device_profile: one call of fn launches the
+    kernels named symbols, in that order."""
+    entry["_profile"] = (fn, list(symbols))
+
+
+def kernel_symbol(name):
+    """A profiler kernel name without return type, template arguments and
+    parameters: 'void loop_kernel<loopb::U32MulAdd>(long const*, ...)' ->
+    'loop_kernel'."""
+    return name.split("(")[0].removeprefix("void ").split("<")[0]
+
+
+def device_profile(p, inp, entries):
+    """One torch.profiler session (CPU and CUDA activities; a session after
+    another lost its first kernels on the card): one forward, then every
+    marked entry's fn twice over, a warm round and a timed one, each call
+    fenced by a synchronize, so the session's last kernels in order of
+    start are the timed calls' in turn, and those before the warm round
+    the forward's. A launch of the session without its kernel record, or a
+    warm or timed call whose kernels are not the ones its entry names,
+    fails the run: a lost record would shift every later time onto the
+    wrong entry. Records each marked kernel's device microseconds in its
+    entry: the time of the short kernels whose CUDA-event times measure the
+    host that issues them. Returns the forward's CUDA kernels, their summed
+    device ms and its wall ms (host clock); the device's idle share is
+    1 - device / wall. Memory copies and sets are not counted as
+    kernels."""
+    marked = [e for e in entries if "_profile" in e]
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ri.forward(p, inp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        for e in marked + marked:
+            e["_profile"][0]()
+            torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sorted((ev for ev in events
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and not ev.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda ev: ev.time_range.start)
+    # a launch and its kernel record share the launch's correlation id
+    lost = ({ev.id for ev in events
+             if ev.device_type == torch.autograd.DeviceType.CPU
+             and ev.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+            - {ev.id for ev in kernels})
+    check(not lost, f"profiler lost the kernel records of {len(lost)} "
+          "launch(es)")
+    expected = [s for e in marked for s in e["_profile"][1]]
+    n_short = len(expected)
+    check(len(kernels) > 2 * n_short,
+          f"profiler saw {len(kernels)} kernels, not the forward's and "
+          f"2 x {n_short}")
+    forward, warm, short = (kernels[:-2 * n_short],
+                            kernels[-2 * n_short:-n_short],
+                            kernels[-n_short:])
+    for got in (warm, short):
+        names = [kernel_symbol(ev.name) for ev in got]
+        check(names == expected, f"profiler's short kernels {names}, not "
+              f"{expected}")
+    for e in marked:
+        _, symbols = e.pop("_profile")
+        n = len(symbols)
+        e["profiler_device_us"] = [ev.time_range.elapsed_us()
+                                   for ev in short[:n]]
+        short = short[n:]
+        print(f"  {e['name']}: {n} launch(es), device "
+              f"{sum(e['profiler_device_us']):.3f} us (torch.profiler; "
+              f"{', '.join(sorted(set(symbols)))})")
+    device_ms = sum(ev.time_range.elapsed_us() for ev in forward) / 1e3
+    return len(forward), device_ms, wall_ms
+
+
 def words_to_bytes(col) -> bytes:
     return b"".join(int(v).to_bytes(4, "big") for v in col)
 
 
 def phase_sha(dev, rng):
-    """SHA-256 at the flagship's block counts (dg1 2, dg15 3, ec 4, sa 2),
-    on real padded messages (words >= 2^31 included); SHA-224 at nb = 2."""
+    """SHA-256 at the flagship's block counts (dg1 2, dg15 3, ec 4, sa 2)
+    on real padded messages (words >= 2^31 included): the step's one
+    many-message launch (sha2_32_chunks_many) timed beside the route of one
+    launch a message (sha2_32_chunks, four calls), both against their plain
+    versions and hashlib; then SA under SHA-224 (SIG_ALGO 24) in the
+    many-message entry and alone, and a list of three (no dg15)."""
     msgs, words = {}, {}
     for nb in (2, 3, 4):
         msgs[nb] = [bytes(rng.randrange(256) for _ in range(
@@ -336,28 +448,55 @@ def phase_sha(dev, rng):
             [sha2.bytes_to_words32(sha2.pad_message(m, 512))
              for m in msgs[nb]], axis=-1), dev)
         check(bool((words[nb] >= 1 << 31).any()), "no word >= 2^31")
-    step = [words[2], words[3], words[4], words[2]]
-    outs, entry = compare(
-        "sha2_32_chunks",
-        lambda: torch.cat([cuda_sha2.sha2_32_chunks(w) for w in step]),
-        lambda: torch.cat([cuda_sha2.sha2_32_chunks_plain(w) for w in step]),
-        nbytes=8 * sum(w.numel() + 8 * BATCH for w in step),
-        int_ops=sum(w.shape[0] // 16 for w in step) * OPS_SHA_BLOCK * BATCH)
-    digests = outs[0].reshape(4, 8, BATCH)
-    for i, nb in enumerate((2, 3, 4)):
+    nbs = (2, 3, 4, 2)
+    step = [words[nb] for nb in nbs]
+    algos = [256] * 4
+    work = dict(nbytes=8 * sum(w.numel() + 8 * BATCH for w in step),
+                int_ops=sum(nbs) * OPS_SHA_BLOCK * BATCH)
+    outs, many = compare(
+        "sha2_32_chunks_many",
+        lambda: cuda_sha2.sha2_32_chunks_many(step, algos),
+        lambda: cuda_sha2.sha2_32_chunks_many_plain(step, algos), **work)
+    four_outs, four = compare(
+        "sha2_32_chunks", lambda: [cuda_sha2.sha2_32_chunks(w) for w in step],
+        lambda: [cuda_sha2.sha2_32_chunks_plain(w) for w in step], **work)
+    check(all(torch.equal(a, b) for a, b in zip(outs, four_outs)),
+          "the two K1 routes differ")
+    for nb, digest in zip(nbs, outs):
         for lane in range(0, BATCH, BATCH // 8):
-            check(words_to_bytes(digests[i][:, lane].tolist()) ==
+            check(words_to_bytes(digest[:, lane].tolist()) ==
                   sha2.sha_hash_bytes_host(msgs[nb][lane], 256),
                   f"sha256 nb={nb} lane {lane} != hashlib")
+    mixed = cuda_sha2.sha2_32_chunks_many(step, algos[:3] + [224])
+    check(all(torch.equal(a, b) for a, b in zip(
+        mixed, cuda_sha2.sha2_32_chunks_many_plain(step, algos[:3] + [224]))),
+        "sha2_32_chunks_many with SHA-224 sa: kernel != plain")
     d224 = cuda_sha2.sha2_32_chunks(words[2], 224)
-    check(torch.equal(d224, cuda_sha2.sha2_32_chunks_plain(words[2], 224)),
-          "sha224 kernel != plain")
+    check(torch.equal(d224, cuda_sha2.sha2_32_chunks_plain(words[2], 224))
+          and torch.equal(d224, mixed[3]), "sha224 kernel != plain")
     for lane in range(0, BATCH, BATCH // 8):
-        check(words_to_bytes(d224[:, lane].tolist()) ==
+        check(words_to_bytes(mixed[3][:, lane].tolist()) ==
               sha2.sha_hash_bytes_host(msgs[2][lane], 224),
               f"sha224 lane {lane} != hashlib")
-    entry["shape"] = "SHA-256, B=1024, one step's four calls: nb=2,3,4,2"
-    return entry
+    three = [words[2], words[4], words[2]]
+    check(all(torch.equal(a, b) for a, b in zip(
+        cuda_sha2.sha2_32_chunks_many(three, [256, 256, 224]),
+        cuda_sha2.sha2_32_chunks_many_plain(three, [256, 256, 224]))),
+        "sha2_32_chunks_many, three messages: kernel != plain")
+    floor = sha_floor_ms(max(nbs))
+    to_profile(many, lambda: cuda_sha2.sha2_32_chunks_many(step, algos),
+               ["sha256_many_kernel"])
+    to_profile(four, lambda: [cuda_sha2.sha2_32_chunks(w) for w in step],
+               ["sha256_kernel"] * len(step))
+    # a model of the chain's latency, not a measurement: printed, kept out
+    # of the kernels line
+    print(f"  K1 critical-path floor (a lane's {64 * max(nbs)} rounds x "
+          f"{SHA_ROUND_CHAIN_CLOCKS} clocks): {floor:.6f} ms")
+    many["shape"] = ("SHA-256, B=1024, the step's four messages nb=2,3,4,2 "
+                     "in one launch")
+    four["shape"] = ("SHA-256, B=1024, the same four messages, one launch "
+                     "each (off the step)")
+    return [many, four]
 
 
 def _rsa_case(dev, rng, k, exp, even_lane=None):
@@ -633,6 +772,9 @@ def phase_field(dev, rng):
     check(fr.batch_from_limbs(out5[:, lanes]) ==
           [xs[i] * pow(ys[i], 5, fr.P) % fr.P for i in lanes],
           "K7 n=5 != Python ints")
+    to_profile(e6, lambda: cuda_field.mul(a, b), ["fr_mul_kernel"])
+    to_profile(e7, lambda: cuda_field.mul_chain(a, c, SCAN_LEN),
+               ["fr_mul_chain_kernel"])
     e6["shape"] = "(16, 1024) x (16, 1024), edge lanes 0, 1, P-1, P, 2^256-1"
     e7["shape"] = "n=256, (16, 1024) x (16, 1) column"
     return [e6, e7]
@@ -667,6 +809,8 @@ def phase_loop(dev, rng):
                                                     n),
                        nbytes=8 * 3 * 16 * BATCH,
                        int_ops=2 * n * 16 * BATCH, reps=3)
+    to_profile(entry, lambda: cuda_loop.loop("u32_mul_add", a, raw_c, n),
+               ["loop_kernel"])
     entry["shape"] = "u32_mul_add, n=4096, (16, 1024)"
     return entry
 
@@ -696,6 +840,9 @@ def phase_probe(dev, rng):
         lambda: torch.cat([cuda_probe.plain(n, i0, i1).reshape(-1)
                            for n, (i0, i1) in ins.items()]),
         nbytes=nbytes, int_ops=int_ops, mma_ops=mma_ops)
+    to_profile(entry, lambda: [cuda_probe.probe(n, i0, i1)
+                               for n, (i0, i1) in ins.items()],
+               [PROBE_KERNELS[n] for n in ins])
     entry["launches"] = launches
     entry["shape"] = (f"{len(results)} probes; timed: {len(names)} kernel "
                       "probes, one launch each")
@@ -751,10 +898,10 @@ def phase_slice(dev, rng, entries):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     print(f"  forward: {first_s * 1e3:.1f} ms (first call)")
-    # K5's extended entry is held against its plain version only: the
-    # witness step takes the affine one
     read_launches(WITNESS_KERNELS, entries, "the witness step",
-                  off_path=("ladder",))
+                  off_path=OFF_PATH)
+    check(cuda_sha2.sha2_32_chunks_many.launches == 1,
+          "the witness step did not hash its messages in one K1 launch")
 
     flow, sig, smt_ok = (out[k].cpu() for k in ("flow_ok", "sig_ok",
                                                 "smt_ok"))
@@ -771,26 +918,6 @@ def phase_slice(dev, rng, entries):
         check(got == want, f"{name} != oracle on sampled lanes")
     print(f"  outputs equal the oracles on {len(lanes)} lanes; verdicts ok")
     return p, inp
-
-
-def forward_launches(p, inp):
-    """CUDA kernels of one forward, their summed device ms and the
-    forward's wall ms, from torch.profiler (CPU and CUDA activities); the
-    device's idle share is 1 - device / wall. Memory copies and sets are
-    not counted as kernels."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        ri.forward(p, inp)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return len(kernels), device_ms, wall_ms
 
 
 def stage_ms(p, inp, reps=3):
@@ -862,6 +989,23 @@ def field_path(dev, entries):
                                              SCAN_LEN)
 
 
+def ptxas_check():
+    """Print the registers and spills nvcc's -Xptxas -v gave K1's and K7's
+    kernels in this build (build.log); they must not spill."""
+    report = cuda_build.ptxas_report(
+        (cuda_build.BUILD_DIR / "build.log").read_text())
+    for name in ("sha256_many_kernel", "sha256_kernel",
+                 "fr_mul_chain_kernel"):
+        check(name in report, f"no -Xptxas -v entry for {name}")
+        regs, st, ld = report[name]
+        print(f"  ptxas {name}: {regs} registers, spill stores {st} B, "
+              f"loads {ld} B")
+        check(st == ld == 0, f"{name} spills")
+    spilled = sorted(k for k, (_, st, ld) in report.items() if st or ld)
+    print(f"  ptxas: {len(report)} kernels, spilling: "
+          f"{', '.join(spilled) or 'none'}")
+
+
 def card_rates(card):
     """Fill CARD with the card's 32-bit integer instruction rate."""
     smi = subprocess.run(
@@ -871,6 +1015,7 @@ def card_rates(card):
     mhz = float(smi.stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     CARD["int_ops_per_s"] = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    CARD["sm_hz"] = mhz * 1e6
     print(f"bound model: {sms} SMs x {mhz:.0f} MHz (clocks.max.sm) x "
           f"{INT_OPS_PER_CLOCK_PER_SM} int32 ops/clock = "
           f"{CARD['int_ops_per_s']:.4g} int32 ops/s; HBM "
@@ -896,6 +1041,7 @@ def main():
     cuda_build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({cuda_build.BUILD_DIR})")
+    ptxas_check()
 
     rng = random.Random(SEED)
     entries = []
@@ -907,7 +1053,9 @@ def main():
 
     print("phase slice")
     p, inp = phase_slice(dev, rng, entries)
-    n_kernels, device_ms, wall_ms = forward_launches(p, inp)
+    print("one forward, then one call of each short kernel, under "
+          "torch.profiler")
+    n_kernels, device_ms, wall_ms = device_profile(p, inp, entries)
     print(f"one forward under torch.profiler: {n_kernels} CUDA kernels, "
           f"{device_ms:.2f} ms device, {wall_ms:.1f} ms wall, device idle "
           f"{100 * (1 - device_ms / wall_ms):.1f} %; card: {card}")

@@ -17,10 +17,11 @@
 // ballots of the team (wp::Group::carry_in). W = 1 is the arithmetic of
 // fr_team.cuh's team of eight, one word a thread. With W = 8 (a team of
 // one) every operation is fr_bn254.cuh's own. K3 ships W = 2 (a team of
-// four) up to t = 8 (tools/k3_designs times every W).
+// four) up to t = 8, and K7 (mul_chain_lane, below) runs its chain on one
+// team a lane (tools/kernel_designs times every W for both).
 //
 // A host build runs a group's threads itself through warp.cuh's exchange;
-// tests/torch_csrc_host_check.cc runs K3's lane body that way.
+// tests/torch_csrc_host_check.cc runs K3's and K7's lane bodies that way.
 #pragma once
 
 #include "fr_bn254.cuh"
@@ -147,9 +148,16 @@ struct Slice {
     return reduce_once(s);
   }
 
-  // Montgomery product a * b / 2^256 mod P, a < 2^256, b < P: the value
-  // before the final subtract is below 2P.
+  // Montgomery product a * b / 2^256 mod P, a < 2^256, b < P.
   PZK_HD Fe mul(const Fe& a, const Fe& b) const {
+    if constexpr (TW == 1) return part(fr::mul(whole(a), whole(b)));
+    return reduce_once(mul_lazy(a, b));
+  }
+
+  // mul without its final subtract, for the same a and b: a * b / 2^256
+  // mod P or that plus P, below 2P. A chain x <- x * c (c < P) can so keep
+  // x below 2P and leave the subtract to its end (K7).
+  PZK_HD Fe mul_lazy(const Fe& a, const Fe& b) const {
     if constexpr (TW == 1) return part(fr::mul(whole(a), whole(b)));
     uint64_t t[W];
 #pragma unroll
@@ -200,7 +208,7 @@ struct Slice {
       s.w[w] += cin;
       cin = next;
     }
-    return reduce_once(s);
+    return s;
   }
 
   PZK_HD Fe sqr(const Fe& a) const { return mul(a, a); }
@@ -261,6 +269,34 @@ PZK_HD Slice<W, GL> make_slice(const wp::Group<GL>& g) {
 #pragma unroll
   for (int w = 0; w < W; ++w) s.p[w] = wp::word(p, s.q * W + w);
   return s;
+}
+
+// K7's lane body: n dependent steps x <- x * c mod P from x = a, for lane
+// `lane` of B, on a team of 8 / W threads (the group is the team). a, out:
+// (16, B) limbs; c: (16, B), or one (16, 1) column that every lane reads
+// when c_bcast. Both go to Montgomery form first, so any value below 2^256
+// is taken; n = 0 copies a as it is (unreduced). The chain's products
+// skip their final subtract (x stays below 2P; from_mont reduces it), which
+// shortens each by two ballots. A lane past the batch runs on lane B - 1
+// and stores nothing.
+template <int W>
+PZK_HD void mul_chain_lane(const wp::Group<fr::NW / W>& g, const int64_t* a,
+                           const int64_t* c, int c_bcast, int64_t* out, int n,
+                           long lane, long B) {
+  const Slice<W, fr::NW / W> f = make_slice<W>(g);
+  if (n == 0) {
+    if (lane < B)
+      for (long j = 2 * W * f.q; j < 2 * W * (f.q + 1); ++j)
+        out[j * B + lane] = a[j * B + lane];
+    return;
+  }
+  const long mine = lane < B ? lane : B - 1;
+  typename Slice<W, fr::NW / W>::Fe x = f.to_mont(f.load(a + mine, B));
+  const typename Slice<W, fr::NW / W>::Fe y =
+      f.to_mont(f.load(c + (c_bcast ? 0 : mine), c_bcast ? 1 : B));
+  for (int i = 0; i < n; ++i) x = f.mul_lazy(x, y);    // below 2P
+  x = f.from_mont(x);
+  if (lane < B) f.store(x, out + lane, B);
 }
 
 }  // namespace frs

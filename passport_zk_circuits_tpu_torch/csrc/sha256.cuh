@@ -69,4 +69,103 @@ PZK_HD void compress(uint32_t st[8], const uint32_t blk[16]) {
   st[7] += h;
 }
 
+// 16 words of block blk of a (16 nb, B) message, at lane
+PZK_HD void load_block(uint32_t w[16], const int64_t* msg, int blk, long B,
+                       long lane) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    w[i] = (uint32_t)msg[(16L * blk + i) * B + lane];
+}
+
+// One lane of a (16 nb, B) message: its digest words to out (8, B), the
+// IV of SHA-224 when is224. Block i + 1's words are loaded before block i
+// is compressed, so each block's global loads are in flight during the
+// rounds before it.
+PZK_HD void hash_lane(const int64_t* msg, int64_t* out, int nb, bool is224,
+                      long B, long lane) {
+  const uint32_t iv256[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u,
+                             0xa54ff53au, 0x510e527fu, 0x9b05688cu,
+                             0x1f83d9abu, 0x5be0cd19u};
+  const uint32_t iv224[8] = {0xc1059ed8u, 0x367cd507u, 0x3070dd17u,
+                             0xf70e5939u, 0xffc00b31u, 0x68581511u,
+                             0x64f98fa7u, 0xbefa4fa4u};
+  uint32_t st[8], cur[16], nxt[16] = {};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] = is224 ? iv224[i] : iv256[i];
+  if (nb > 0) load_block(cur, msg, 0, B, lane);
+  for (int blk = 0; blk < nb; ++blk) {
+    if (blk + 1 < nb) load_block(nxt, msg, blk + 1, B, lane);
+    compress(st, cur);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) cur[i] = nxt[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[(long)i * B + lane] = st[i];
+}
+
+// K1's many-message entry: up to MAX_MSGS messages of B lanes each, every
+// one with its own block count and IV, hashed by one launch. A thread
+// block is one warp of one message, so no warp straddles two block counts;
+// each message takes lane_chunks(B) thread blocks, the messages with the
+// most SHA blocks first.
+constexpr int MAX_MSGS = 4;
+constexpr int MANY_THREADS = 32;
+
+struct Many {
+  const int64_t* msg[MAX_MSGS];  // (16 nb, B) words
+  int64_t* out[MAX_MSGS];        // (8, B) digest words
+  int nb[MAX_MSGS];
+  int is224[MAX_MSGS];
+  int n;                         // messages
+  int B;                         // lanes of each
+};
+
+PZK_HD int lane_chunks(int B) { return (B + MANY_THREADS - 1) / MANY_THREADS; }
+
+PZK_HD int many_blocks(const Many& m) { return m.n * lane_chunks(m.B); }
+
+// The plan of one launch: the caller's n <= MAX_MSGS messages, ordered by
+// block count, most first (a stable insertion sort).
+PZK_HD Many plan_many(int n, const int64_t* const* msg, int64_t* const* out,
+                      const int* nb, const int* is224, int B) {
+  Many m;
+  m.n = n;
+  m.B = B;
+  for (int i = 0; i < n; ++i) {
+    int j = i;
+    for (; j > 0 && m.nb[j - 1] < nb[i]; --j) {
+      m.msg[j] = m.msg[j - 1];
+      m.out[j] = m.out[j - 1];
+      m.nb[j] = m.nb[j - 1];
+      m.is224[j] = m.is224[j - 1];
+    }
+    m.msg[j] = msg[i];
+    m.out[j] = out[i];
+    m.nb[j] = nb[i];
+    m.is224[j] = is224[i];
+  }
+  return m;
+}
+
+// Thread block b of a plan: the message it hashes (its place in the plan)
+// and the first of its lanes
+struct Chunk {
+  int slot;
+  long lane0;
+};
+
+PZK_HD Chunk block_chunk(const Many& m, int b) {
+  const int c = lane_chunks(m.B);
+  return {b / c, (long)(b % c) * MANY_THREADS};
+}
+
+// Thread t of thread block b; a lane past the batch does nothing
+PZK_HD void many_thread(const Many& m, int b, int t) {
+  const Chunk c = block_chunk(m, b);
+  const long lane = c.lane0 + t;
+  if (lane >= m.B) return;
+  hash_lane(m.msg[c.slot], m.out[c.slot], m.nb[c.slot], m.is224[c.slot] != 0,
+            m.B, lane);
+}
+
 }  // namespace sha

@@ -38,11 +38,6 @@ class PassportInputs(NamedTuple):
     slave_branches: torch.Tensor      # (16, 80, B)
 
 
-def _hash_blob(words, algo: int):
-    """Digest words of a padded word blob."""
-    return sha2.sha_hash_chunks(words, algo)
-
-
 def ec_hash_type(p: params.CircuitParams) -> int:
     """EC hash = signature hash except SIG_ALGO 24 (SHA-224 SA, SHA-256 EC)."""
     return 256 if p.signature_type == 24 else p.sig.hash_len
@@ -86,12 +81,15 @@ def forward(p: params.CircuitParams, inp: PassportInputs):
             f"signature family {p.sig.family!r} is not ported yet "
             "(ROADMAP queue 1: RSA-PSS, ECDSA)")
 
-    dg1_flat = _hash_blob(inp.dg1_words, dg_algo)
-    dg15_flat = None
+    # the four blobs are independent inputs (each digest is only compared
+    # with bytes of the next blob), so they are hashed in one launch
+    blobs = [(inp.dg1_words, dg_algo)]
     if p.aa_signature_algo != 0:
-        dg15_flat = _hash_blob(inp.dg15_words, dg_algo)
-    ec_flat = _hash_blob(inp.ec_words, ec_algo)
-    sa_flat = _hash_blob(inp.sa_words, sa_algo)
+        blobs.append((inp.dg15_words, dg_algo))
+    blobs += [(inp.ec_words, ec_algo), (inp.sa_words, sa_algo)]
+    digests = sha2.sha_hash_chunks_many(*zip(*blobs))
+    dg1_flat, ec_flat, sa_flat = digests[0], digests[-2], digests[-1]
+    dg15_flat = digests[1] if p.aa_signature_algo != 0 else None
     sa_bits = bitops.get_bits(sa_flat, 0, min(252, sa_algo))
 
     for s in (p.dg1_shift, p.ec_shift, p.dg15_shift):

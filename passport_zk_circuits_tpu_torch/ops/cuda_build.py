@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -33,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pzk_sha256": [_P, _P, _I, _I, _I, _P],
+    "pzk_sha256_many": [_P, _P, _P, _P, _I, _I, _P],
     "pzk_rsa_pow": [_P, _P, _P, _P, _I, _I, ctypes.c_ulonglong, _P, _P],
     "pzk_poseidon": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pzk_smt_climb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -115,6 +117,43 @@ def library() -> ctypes.CDLL:
     lib.pzk_error_string.argtypes = [ctypes.c_int]
     lib.pzk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} for every
+    entry function in nvcc's -Xptxas -v output (build.log); a kernel's
+    name is shortened to its identifier and template values, as
+    sha256_kernel or poseidon_kernel<6>."""
+    report, entry, props, spills = {}, None, None, {}
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills[props] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            report[kernel_name(entry)] = (int(m.group(1)),
+                                          *spills.get(entry, (0, 0)))
+    return report
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as its identifier and template values."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if m is None:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[start + len(name):])
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return name
 
 
 def check(rc: int, name: str) -> None:

@@ -8,8 +8,9 @@ that every lane uses (the kernel reads it with stride 0, as ``pf.mul``
 broadcasts it). Inputs need not be below P: the kernels convert both
 operands to Montgomery form first, so the result is (a·b) mod P for any
 a, b < 2^256, as the JAX package's. K7 is the kernel behind the
-field-muls/s metric: n dependent CIOS products per lane in registers,
-bound by integer multiply throughput.
+field-muls/s metric: n dependent CIOS products per lane in registers, each
+lane's chain on a team of threads (csrc/fr_slice.cuh), so at B = 1024 its
+time is the chain's latency.
 """
 
 from __future__ import annotations

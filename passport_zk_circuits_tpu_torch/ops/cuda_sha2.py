@@ -3,15 +3,21 @@
 Replaces ``sha2_32_chunks`` of ``passport_zk_circuits_tpu/ops/pallas_sha2.py``
 (one fused Pallas call over all blocks of a message). On the H100 the work
 is 64 rounds of 32-bit logic per block and lane with a state of 8 words and
-a 16-word schedule window: it fits in registers, so the kernel is bound by
-integer issue rate and, at the flagship's 1024 lanes (8 blocks of 128
-threads), by how few SMs it occupies. One thread per lane, all blocks of a
-message in one launch, batch-minor layout so that loads coalesce.
+a 16-word schedule window: it fits in registers, and each lane's rounds are
+one dependent chain, so at the flagship's 1024 lanes the kernel is bound by
+that chain and by how few SMs one message's lanes occupy. Two entries:
+
+- ``sha2_32_chunks``: one message, one launch, a thread a lane;
+- ``sha2_32_chunks_many``: up to four messages of the same batch, each with
+  its own block count and SHA-224/256, in one launch (the witness step's
+  dg1, dg15, ec and sa), one warp of one message a thread block.
 
 The kernel reads the int64 word tensors as they are (no narrowing cast).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -48,8 +54,58 @@ def sha2_32_chunks(msg, algo: int = 256):
         rc = lib.pzk_sha256(msg.data_ptr(), out.data_ptr(), nb, B,
                             int(algo == 224), cuda_build.stream_of(msg))
     cuda_build.check(rc, "sha2_32_chunks")
-    sha2_32_chunks.launches += 1
+    if B:
+        sha2_32_chunks.launches += 1
     return out if algo == 256 else out[:7]
 
 
 sha2_32_chunks.launches = 0
+
+MAX_MSGS = 4
+
+
+def sha2_32_chunks_many_plain(msgs, algos):
+    """Plain PyTorch version: sha2_32_chunks_plain over the list."""
+    return [sha2_32_chunks_plain(m, a) for m, a in zip(msgs, algos)]
+
+
+def sha2_32_chunks_many(msgs, algos):
+    """Up to four batched SHA-256/224 hashes in one launch. msgs: a list of
+    (16*nb_i, B) int64 word tensors, one B for all; algos: 224 or 256 for
+    each. Returns the list of digests, (8 or 7, B) each. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel."""
+    msgs, algos = list(msgs), list(algos)
+    if not 1 <= len(msgs) <= MAX_MSGS or len(algos) != len(msgs):
+        raise ValueError(f"sha2_32_chunks_many: 1 to {MAX_MSGS} messages, "
+                         f"one algo each; got {len(msgs)} and {len(algos)}")
+    for m, a in zip(msgs, algos):
+        if a not in (224, 256):
+            raise ValueError(f"sha2_32_chunks_many: algo {a} is not "
+                             "SHA-224/256")
+        if m.dim() != 2 or m.shape[0] % 16 or m.shape[1] != msgs[0].shape[1]:
+            raise ValueError("sha2_32_chunks_many: bad message shape "
+                             f"{tuple(m.shape)} (first {tuple(msgs[0].shape)})")
+    if not msgs[0].is_cuda:
+        return sha2_32_chunks_many_plain(msgs, algos)
+    msgs = [m.contiguous() for m in msgs]
+    cuda_build.require_cuda_int64("sha2_32_chunks_many", *msgs)
+    n, B = len(msgs), msgs[0].shape[1]
+    outs = [torch.empty((8, B), dtype=torch.int64, device=m.device)
+            for m in msgs]
+    ptrs = ctypes.c_void_p * n
+    ints = ctypes.c_int * n
+    lib = cuda_build.library()
+    with torch.cuda.device(msgs[0].device):
+        rc = lib.pzk_sha256_many(
+            ptrs(*[m.data_ptr() for m in msgs]),
+            ptrs(*[o.data_ptr() for o in outs]),
+            ints(*[m.shape[0] // 16 for m in msgs]),
+            ints(*[int(a == 224) for a in algos]), n, B,
+            cuda_build.stream_of(msgs[0]))
+    cuda_build.check(rc, "sha2_32_chunks_many")
+    if B:
+        sha2_32_chunks_many.launches += 1
+    return [o if a == 256 else o[:7] for o, a in zip(outs, algos)]
+
+
+sha2_32_chunks_many.launches = 0

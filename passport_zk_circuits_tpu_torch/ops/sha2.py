@@ -109,18 +109,35 @@ def sha224_chunks(msg):
 # Dispatch facade — ShaHashChunks(BLOCK_NUM, ALGO) analog
 # ---------------------------------------------------------------------------
 
-def sha_hash_chunks(msg, algo: int):
-    """algo in {224, 256}; msg pre-padded words. SHA-1/384/512 are still
-    to port (ROADMAP queue 1, "Remaining hashes")."""
-    if algo == 224:
-        return sha224_chunks(msg)
-    if algo == 256:
-        return sha256_chunks(msg)
+def _require_ported(algo: int) -> None:
+    """SHA-1/384/512 are still to port (ROADMAP queue 1, "Remaining
+    hashes")."""
     if algo in (160, 384, 512):
         raise NotImplementedError(
             f"SHA-{algo if algo != 160 else 1} is not ported yet "
             "(ROADMAP queue 1: Remaining hashes)")
-    raise ValueError(f"unsupported SHA algo {algo}")
+    if algo not in (224, 256):
+        raise ValueError(f"unsupported SHA algo {algo}")
+
+
+def sha_hash_chunks(msg, algo: int):
+    """algo in {224, 256}; msg pre-padded words."""
+    _require_ported(algo)
+    return _sha2_32(msg, algo)
+
+
+def sha_hash_chunks_many(msgs, algos):
+    """Several independent hashes of one batch in one kernel launch: msgs a
+    list of up to four pre-padded word tensors (16*nb_i, *B) with the same
+    batch shape, algos 224 or 256 for each. Returns the list of digests,
+    (8 or 7, *B) each. SHA-1/384/512 raise before anything launches."""
+    from . import cuda_sha2
+    for algo in algos:
+        _require_ported(algo)
+    bshape = msgs[0].shape[1:]
+    outs = cuda_sha2.sha2_32_chunks_many(
+        [m.reshape(m.shape[0], -1) for m in msgs], algos)
+    return [o.reshape((o.shape[0],) + bshape) for o in outs]
 
 
 def sha_hash_bytes_host(data: bytes, algo: int) -> bytes:

@@ -1,0 +1,332 @@
+"""Time a kernel's candidate designs beside the shipped kernel on one CUDA
+card, B = 1024 by default.
+
+    python -m passport_zk_circuits_tpu_torch.tools.kernel_designs \\
+        --kernel k3|k7 [--batch 1024] [--scan-len 256]
+
+K3, the Poseidon permutation, at the flagship step's widths t = 2, 3, 4, 6:
+
+- team: a team of eight threads a lane, one word each (csrc/fr_team.cuh),
+  running the generic body poseidon::permute<T> as K4 does, its pack in
+  shared memory, one warp (four lanes) a block;
+- split W: the lane split over its elements, each element over a team of
+  8 / W threads, W words a thread (poseidon::poseidon_lane<T, W>, the
+  shipped body; W = 8 is one element a thread with fr_bn254.cuh's
+  product), for every W whose lane fits a warp. The shipped kernel is split
+  W = 2 up to t = 8.
+
+K7, the Fr mul chain, at n = --scan-len products on the field-muls/s
+path's inputs (tools/microbench_field.make_inputs: a (16, 1) column c):
+
+- team W: each lane's chain on a team of 8 / W threads, W words a thread
+  (frs::mul_chain_lane, the shipped body), W = 1, 2, 4 and 8 (W = 8 is one
+  thread a lane with fr_bn254.cuh's product). The shipped kernel
+  (csrc/field.cu) runs W = kChainW.
+
+The designs' source is compiled by nvcc into ``_build/kernel_designs/``,
+and each design kernel's registers and spills are printed from
+``-Xptxas -v``, with its divergent branches and warp syncs from
+``cuobjdump -sass``. Each design's output is held bit-equal to the shipped
+kernel's, then every design is timed twice, in turns forward and back:
+CUDA events around 10 launches after a warm one. Needs nvcc and a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import pathlib
+import random
+import re
+import subprocess
+import sys
+
+import torch
+
+from ..ops import bignum as bn
+from ..ops import cuda_build
+from ..ops import cuda_field
+from ..ops import cuda_poseidon
+from ..ops import field as fr
+from ..ops import poseidon as pos
+from . import microbench_field
+
+WIDTHS = (2, 3, 4, 6)
+K3_DESIGNS = ((0, "team"), (1, "split W=1"), (2, "split W=2"),
+              (4, "split W=4"), (8, "split W=8"))
+K7_DESIGNS = ((1, "team W=1"), (2, "team W=2"), (4, "team W=4"),
+              (8, "team W=8"))
+K3_SRC = r"""
+#include <cuda_runtime.h>
+#include "fr_team.cuh"
+#include "poseidon.cuh"
+template <int T>
+__global__ void __launch_bounds__(32) k3_team(
+    const int64_t* __restrict__ state, int64_t* __restrict__ out,
+    const uint32_t* __restrict__ pack, int nP, int B) {
+  extern __shared__ uint32_t k[];
+  const int words = fr::NW * poseidon::pack_entries(T, nP);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) k[w] = pack[w];
+  __syncthreads();
+  const frt::Team tm = frt::device_team();
+  const long lane = (long)blockIdx.x * 4 + threadIdx.x / frt::TEAM;
+  const long mine = lane < B ? lane : B - 1;
+  uint32_t st[T];
+  for (int j = 0; j < T; ++j)
+    st[j] = tm.to_mont(tm.load(state + 16L * j * B + mine, B));
+  poseidon::permute<T>(tm, st, k, nP);
+  const uint32_t r = tm.from_mont(st[0]);
+  if (lane < B) tm.store(r, out + lane, B);
+}
+template <int T, int W>
+__global__ void __launch_bounds__(32) k3_split(
+    const int64_t* __restrict__ state, int64_t* __restrict__ out,
+    const uint32_t* __restrict__ pack, int nP, int B) {
+  constexpr int GL = poseidon::lane_threads(T, W);
+  const long lane = ((long)blockIdx.x * blockDim.x + threadIdx.x) / GL;
+  poseidon::poseidon_lane<T, W>(wp::device_group<GL>(), state, out, pack,
+                                nP, 1, lane, B);
+}
+template <int T, int W>
+int split(const int64_t* state, int64_t* out, const uint32_t* pack, int nP,
+          int B, cudaStream_t s) {
+  if constexpr (poseidon::lane_threads(T, W) > 32) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const long threads = (long)B * poseidon::lane_threads(T, W);
+    k3_split<T, W><<<(threads + 31) / 32, 32, 0, s>>>(state, out, pack, nP,
+                                                     B);
+    return 0;
+  }
+}
+template <int T>
+int launch(int design, const int64_t* state, int64_t* out,
+           const uint32_t* pack, int nP, int B, cudaStream_t s) {
+  switch (design) {
+    case 0: {
+      const size_t smem = 4 * fr::NW * poseidon::pack_entries(T, nP);
+      k3_team<T><<<(B + 3) / 4, 32, smem, s>>>(state, out, pack, nP, B);
+      return 0;
+    }
+    case 1: return split<T, 1>(state, out, pack, nP, B, s);
+    case 2: return split<T, 2>(state, out, pack, nP, B, s);
+    case 4: return split<T, 4>(state, out, pack, nP, B, s);
+    case 8: return split<T, 8>(state, out, pack, nP, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+// design: 0 team, W = 1, 2, 4, 8 split; returns cudaErrorInvalidValue
+// for a design whose lane does not fit a warp
+extern "C" int k3_design_launch(int design, const int64_t* state,
+                                int64_t* out, const uint32_t* pack, int t,
+                                int nP, int B, cudaStream_t s) {
+  int rc = (int)cudaErrorInvalidValue;
+  switch (t) {
+    case 2: rc = launch<2>(design, state, out, pack, nP, B, s); break;
+    case 3: rc = launch<3>(design, state, out, pack, nP, B, s); break;
+    case 4: rc = launch<4>(design, state, out, pack, nP, B, s); break;
+    case 6: rc = launch<6>(design, state, out, pack, nP, B, s); break;
+  }
+  return rc ? rc : (int)cudaGetLastError();
+}
+"""
+K7_SRC = r"""
+#include <cuda_runtime.h>
+#include "fr_slice.cuh"
+template <int W>
+__global__ void __launch_bounds__(32) k7_team(
+    const int64_t* __restrict__ a, const int64_t* __restrict__ c,
+    int c_bcast, int64_t* __restrict__ out, int n, int B) {
+  constexpr int TW = fr::NW / W;
+  const long lane = ((long)blockIdx.x * blockDim.x + threadIdx.x) / TW;
+  frs::mul_chain_lane<W>(wp::device_group<TW>(), a, c, c_bcast, out, n, lane,
+                         B);
+}
+template <int W>
+void team(const int64_t* a, const int64_t* c, int c_bcast, int64_t* out,
+          int n, int B, cudaStream_t s) {
+  const long threads = (long)B * (fr::NW / W);
+  k7_team<W><<<(threads + 31) / 32, 32, 0, s>>>(a, c, c_bcast, out, n, B);
+}
+// W = 1, 2, 4, 8 words a thread; cudaErrorInvalidValue for another W
+extern "C" int k7_design_launch(int W, const int64_t* a, const int64_t* c,
+                                int c_bcast, int64_t* out, int n, int B,
+                                cudaStream_t s) {
+  switch (W) {
+    case 1: team<1>(a, c, c_bcast, out, n, B, s); break;
+    case 2: team<2>(a, c, c_bcast, out, n, B, s); break;
+    case 4: team<4>(a, c, c_bcast, out, n, B, s); break;
+    case 8: team<8>(a, c, c_bcast, out, n, B, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+"""
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel -> (source, C entry, its argtypes)
+SOURCES = {
+    "k3": (K3_SRC, "k3_design_launch", [_I, _P, _P, _P, _I, _I, _I, _P]),
+    "k7": (K7_SRC, "k7_design_launch", [_I, _P, _P, _I, _P, _I, _I, _P]),
+}
+
+
+def build(kernel):
+    """nvcc the kernel's design source into _build/kernel_designs/, print
+    its kernels' registers and spills; the loaded library."""
+    src, entry, argtypes = SOURCES[kernel]
+    d = cuda_build.BUILD_DIR / "kernel_designs"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / f"{kernel}.cu").write_text(src)
+    so = d / f"lib{kernel}_designs.so"
+    proc = subprocess.run(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared",
+         "-I", str(cuda_build.CSRC), "-o", str(so), str(d / f"{kernel}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    sass = sass_branches(so)
+    for name, (regs, st, ld) in cuda_build.ptxas_report(
+            proc.stdout + proc.stderr).items():
+        div, sync = sass.get(name, (None, None))
+        print(f"  ptxas {name}: {regs} registers, spill stores {st} B, "
+              f"loads {ld} B; SASS: {div} BRA.DIV, {sync} WARPSYNC")
+    lib = ctypes.CDLL(str(so))
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sass_branches(so):
+    """{kernel: (BRA.DIV, WARPSYNC instructions)} in so's SASS
+    (cuobjdump -sass): a divergent branch around code that shuffles splits
+    a team's exchanges (the 8 x slower K3 of a per-thread select)."""
+    dump = subprocess.run(
+        [str(pathlib.Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(so)], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = cuda_build.kernel_name(m.group(1))
+            counts[name] = (0, 0)
+        elif name is not None:
+            div, sync = counts[name]
+            counts[name] = (div + ("BRA.DIV" in line),
+                            sync + ("WARPSYNC" in line))
+    return counts
+
+
+def cuda_ms(fn, reps=10):
+    """Mean device ms of fn over reps runs (CUDA events), after a warm
+    one."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(fns):
+    """{name: [ms, ms]}: every fn timed forward, then back."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(cuda_ms(fns[name]))
+    return times
+
+
+def design_fn(launch, design, out, what):
+    def fn():
+        rc = launch(design)
+        if rc != 0:
+            raise RuntimeError(f"design {design} {what}: CUDA error {rc}")
+        return out
+    return fn
+
+
+def run_k3(launch_design, t, batch, rng):
+    """{design: [ms, ms]} of K3 at width t on batch random inputs."""
+    dev = torch.device("cuda")
+    ins = torch.stack([bn.to_tensor(fr.batch_to_limbs(
+        [rng.randrange(fr.P) for _ in range(batch)]), dev)
+        for _ in range(t - 1)], 1)                           # (16, t-1, B)
+    flat = (pos.stack_inputs(ins, None).transpose(0, 1)
+            .reshape(16 * t, batch).contiguous())
+    out = torch.empty((16, batch), dtype=torch.int64, device=dev)
+    pack = cuda_poseidon._pack(t, dev)
+
+    def launch(design):
+        return launch_design(design, flat.data_ptr(), out.data_ptr(),
+                             pack.data_ptr(), t, pos.N_ROUNDS_P[t - 2],
+                             batch, cuda_build.stream_of(flat))
+
+    fns = {"shipped": lambda: cuda_poseidon.poseidon_ex(ins)}
+    want = fns["shipped"]()[:, 0]
+    for design, name in K3_DESIGNS:
+        if design and launch(design) != 0:           # lane wider than a warp
+            continue
+        fns[name] = design_fn(launch, design, out, f"t={t}")
+        if not torch.equal(fns[name](), want):
+            raise AssertionError(f"design {name} t={t} != poseidon_ex")
+    return in_turns(fns)
+
+
+def run_k7(launch_design, batch, scan_len):
+    """{design: [ms, ms]} of K7 at n = scan_len on the field-muls/s
+    path's inputs."""
+    x0, c = microbench_field.make_inputs(batch, torch.device("cuda"))
+    out = torch.empty_like(x0)
+
+    def launch(design):
+        return launch_design(design, x0.data_ptr(), c.data_ptr(), 1,
+                             out.data_ptr(), scan_len, batch,
+                             cuda_build.stream_of(x0))
+
+    fns = {"shipped": lambda: cuda_field.mul_chain(x0, c, scan_len)}
+    want = fns["shipped"]()
+    for design, name in K7_DESIGNS:
+        fns[name] = design_fn(launch, design, out, f"n={scan_len}")
+        if not torch.equal(fns[name](), want):
+            raise AssertionError(f"design {name} != mul_chain")
+    return in_turns(fns)
+
+
+def _line(head, times, rate=None):
+    return head + ", ".join(
+        f"{name} {ms[0]:.4f} / {ms[1]:.4f} ms" +
+        (f" ({rate(min(ms)):.6g} field-muls/s)" if rate else "")
+        for name, ms in times.items())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(SOURCES), required=True)
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--scan-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_designs: needs a CUDA card", file=sys.stderr)
+        return 1
+    print(f"{args.kernel} designs on {torch.cuda.get_device_name(0)}")
+    launch = build(args.kernel)
+    if args.kernel == "k3":
+        rng = random.Random(args.seed)
+        for t in WIDTHS:
+            print(_line(f"K3 designs t={t}, B={args.batch}: ",
+                        run_k3(launch, t, args.batch, rng)), flush=True)
+    else:
+        print(_line(f"K7 designs n={args.scan_len}, B={args.batch}: ",
+                    run_k7(launch, args.batch, args.scan_len),
+                    lambda ms: args.batch * args.scan_len / ms * 1e3))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,9 @@ integer arithmetic). The code that splits a lane over several threads,
 joined by shuffles and ballots, runs here with those threads as coroutines
 that take turns at every exchange: the team arithmetic of fr_team.cuh (K4,
 K5: eight threads a lane), K3's split permutation (warp.cuh groups of 2 to
-32 threads) and K2's Montgomery modexp across a warp (32 threads). This
+32 threads), K7's chain on a team of 8 / W threads and K2's Montgomery
+modexp across a warp (32 threads). K1's many-message entry runs every
+thread of its launch, its plan of thread blocks checked lane by lane. This
 catches arithmetic faults before they reach the card; the kernels
 themselves are built and compared on the card by chip_smoke.py.
 """
@@ -30,6 +32,7 @@ from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_babyjubjub
 from passport_zk_circuits_tpu_torch.ops import cuda_loop
 from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
+from passport_zk_circuits_tpu_torch.ops import cuda_sha2
 from passport_zk_circuits_tpu_torch.ops import field as fr
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
 from passport_zk_circuits_tpu_torch.ops import sha2
@@ -42,6 +45,7 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _P64 = ctypes.POINTER(ctypes.c_int64)
 _PU32 = ctypes.POINTER(ctypes.c_uint32)
+_PI32 = ctypes.POINTER(ctypes.c_int32)
 
 
 @pytest.fixture(scope="module")
@@ -350,3 +354,89 @@ def test_warp_pow_mod(lib, k, exps):
             plain = bn.mod_pow(bn.to_tensor(s, "cpu"), e,
                                bn.to_tensor(n, "cpu"), bn.to_tensor(mu, "cpu"))
             np.testing.assert_array_equal(out, plain.numpy())
+
+
+SHA_NB = (2, 3, 4, 2)           # the flagship step's dg1, dg15, ec and sa
+
+
+def _i32(xs):
+    return _ptr(np.array(xs, np.int32), _PI32)
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1024])
+def test_sha_many_block_map(lib, B):
+    """K1's many-message plan (sha::plan_many, sha::block_chunk) for the
+    step's four messages and for three (no dg15): every lane of every
+    message hashed by exactly one thread, no thread block spanning two
+    messages, the messages with the most SHA blocks first (equal counts in
+    the caller's order)."""
+    for nbs in (SHA_NB, SHA_NB[:1] + SHA_NB[2:]):
+        n, chunks = len(nbs), -(-B // 32)
+        msg_of = np.full(n * chunks * 32, -2, np.int32)
+        lane_of = np.zeros(n * chunks * 32, np.int64)
+        blocks = lib.host_sha_many_map(n, _i32(nbs), B, _ptr(msg_of, _PI32),
+                                       _ptr(lane_of))
+        assert blocks == n * chunks
+        covered = np.zeros((n, B), np.int64)
+        order = []
+        for msgs, lanes in zip(msg_of.reshape(blocks, 32),
+                               lane_of.reshape(blocks, 32)):
+            live = msgs >= 0
+            assert len(set(msgs[live].tolist())) == 1
+            assert (lanes[~live] >= B).all() and (lanes[live] < B).all()
+            np.add.at(covered[msgs[live][0]], lanes[live], 1)
+            if not order or order[-1] != msgs[live][0]:
+                order.append(int(msgs[live][0]))
+        assert (covered == 1).all()
+        assert order == sorted(range(n), key=lambda i: -nbs[i])
+
+
+def test_sha_many_lanes(lib):
+    """K1's many-message entry (sha::many_thread over every thread of the
+    launch) on 33 lanes of the step's four messages, the last one SHA-224
+    (SIG_ALGO 24 hashes SA with SHA-224), against the plain version and
+    hashlib."""
+    B, algos = 33, (256, 256, 256, 224)
+    texts = [[bytes(rng.randrange(256) for _ in range(
+        64 * nb - 9 - rng.randrange(40))) for _ in range(B)] for nb in SHA_NB]
+    words = [np.ascontiguousarray(np.stack(
+        [sha2.bytes_to_words32(sha2.pad_message(m, 512)) for m in ms],
+        axis=-1).astype(np.int64)) for ms in texts]
+    outs = [np.zeros((8, B), np.int64) for _ in words]
+    ptrs = ctypes.c_void_p * len(words)
+    lib.host_sha_many(len(words), ptrs(*[w.ctypes.data for w in words]),
+                      ptrs(*[o.ctypes.data for o in outs]), _i32(SHA_NB),
+                      _i32([a == 224 for a in algos]), B)
+    for w, out, algo, ms in zip(words, outs, algos, texts):
+        k = algo // 32
+        plain = cuda_sha2.sha2_32_chunks_plain(torch.from_numpy(w), algo)
+        np.testing.assert_array_equal(out[:k], plain.numpy())
+        assert [b"".join(int(v).to_bytes(4, "big") for v in col)
+                for col in out[:k].T.tolist()] == \
+            [hashlib.new(f"sha{algo}", m).digest() for m in ms]
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+def test_fr_mul_chain_team(lib, W):
+    """K7's lane body (frs::mul_chain_lane) on a team of 8 / W threads a
+    lane, n = 0, 1, 5, with a (16, B) c and with a broadcast (16, 1)
+    column, on lanes 0, 1, P-1, P and 2^256-1 (taken unreduced) against
+    Python pow; n = 0 gives a as it is; the lane past the batch stores
+    nothing (a sentinel row after the output stays)."""
+    xs = [0, 1, fr.P - 1, fr.P, (1 << 256) - 1]
+    cs = xs[::-1]
+    B = len(xs)
+    a = np.ascontiguousarray(bn.ints_to_limbs_batch(xs, 16).astype(np.int64))
+    c = np.ascontiguousarray(bn.ints_to_limbs_batch(cs, 16).astype(np.int64))
+    col = np.ascontiguousarray(c[:, :1])
+    for n in (0, 1, 5):
+        for bcast, cc, ys in ((0, c, cs), (1, col, cs[:1] * B)):
+            out = np.full((17, B), -1, np.int64)
+            assert lib.host_fr_chain(W, _ptr(a), _ptr(cc), bcast, _ptr(out),
+                                     n, B) == 0
+            assert (out[16] == -1).all()
+            if n == 0:
+                np.testing.assert_array_equal(out[:16], a)
+            assert bn.limbs_to_ints_batch(out[:16]) == \
+                [x * pow(y, n, fr.P) % fr.P if n else x
+                 for x, y in zip(xs, ys)], (n, bcast)

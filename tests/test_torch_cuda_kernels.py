@@ -61,6 +61,42 @@ def test_sha_kernel(dev, nb, algo):
     _same(out, cuda_sha2.sha2_32_chunks_plain(words, algo))
 
 
+@pytest.mark.parametrize("n_lanes", [1, 33, 1024])
+@pytest.mark.parametrize("nbs,algos", [
+    ((3,), (224,)),                                   # a list of one
+    ((2, 4, 2), (256, 256, 224)),                     # no dg15; SA SHA-224
+    ((2, 3, 4, 2), (256, 256, 256, 256)),             # the flagship step
+    ((1, 4, 0, 4), (224, 256, 256, 224))])            # ties, an empty one
+def test_sha_many_kernel(dev, nbs, algos, n_lanes):
+    """K1's many-message entry: one launch for the list, each digest
+    bit-equal to the plain version, the per-message entry not launched."""
+    g = np.random.default_rng(n_lanes + len(nbs))
+    words = [torch.tensor(g.integers(0, 1 << 32, (16 * nb, n_lanes)),
+                          device=dev) for nb in nbs]
+    before = (cuda_sha2.sha2_32_chunks_many.launches,
+              cuda_sha2.sha2_32_chunks.launches)
+    out = cuda_sha2.sha2_32_chunks_many(words, algos)
+    assert (cuda_sha2.sha2_32_chunks_many.launches,
+            cuda_sha2.sha2_32_chunks.launches) == (before[0] + 1, before[1])
+    want = cuda_sha2.sha2_32_chunks_many_plain(words, algos)
+    assert [o.shape for o in out] == [(a // 32, n_lanes) for a in algos]
+    for o, w in zip(out, want):
+        _same(o, w)
+
+
+def test_sha_empty_batch_launches_nothing(dev):
+    """B = 0: both K1 entries return empty digests and, launching no
+    kernel, leave their counters where they were."""
+    words = torch.zeros((32, 0), dtype=torch.int64, device=dev)
+    before = (cuda_sha2.sha2_32_chunks_many.launches,
+              cuda_sha2.sha2_32_chunks.launches)
+    out = cuda_sha2.sha2_32_chunks_many([words, words], [256, 224])
+    one = cuda_sha2.sha2_32_chunks(words, 224)
+    assert [o.shape for o in out] == [(8, 0), (7, 0)] and one.shape == (7, 0)
+    assert (cuda_sha2.sha2_32_chunks_many.launches,
+            cuda_sha2.sha2_32_chunks.launches) == before
+
+
 E_RAND = random.Random(64).getrandbits(64) | 1 | (1 << 63)   # odd, 64 bits
 
 
@@ -248,14 +284,22 @@ def test_field_mul_kernel(dev, bcast):
     assert fr.batch_from_limbs(out) == [x * y % fr.P for x, y in zip(xs, ys)]
 
 
+@pytest.mark.parametrize("n_lanes", [1, B, 1024])
 @pytest.mark.parametrize("n", [0, 1, 5, 256])
 @pytest.mark.parametrize("bcast", [False, True])
-def test_field_mul_chain_kernel(dev, n, bcast):
-    xs, a = _wide(dev)
-    ys, c = _wide(dev)
+def test_field_mul_chain_kernel(dev, n, bcast, n_lanes):
+    """K7 (a lane's chain on a team of threads) against the plain chain and
+    Python ints on lanes 0, 1, P-1, P, 2^256-1 and random ones, including a
+    team past the batch (B = 1, 37) and the field-muls/s width (1024)."""
+    xs, a = _wide(dev, max(n_lanes, 5))
+    ys, c = _wide(dev, max(n_lanes, 5))
+    xs, a = xs[:n_lanes], a[:, :n_lanes].contiguous()
+    ys, c = ys[:n_lanes], c[:, :n_lanes].contiguous()
     if bcast:
-        ys, c = ys[5:6] * B, c[:, 5:6]
+        ys, c = [ys[-1]] * n_lanes, c[:, -1:].contiguous()
+    before = cuda_field.mul_chain.launches
     out = cuda_field.mul_chain(a, c, n)
+    assert cuda_field.mul_chain.launches == before + 1
     _same(out, cuda_field.mul_chain_plain(a, c, n))
     want = xs if n == 0 else [x * pow(y, n, fr.P) % fr.P
                               for x, y in zip(xs, ys)]

@@ -1,9 +1,11 @@
 """The port's SHA-224/256 against hashlib and the JAX package.
 
-The JAX SHA path is slow-tier on the CPU (XLA compile of the scanned
-compression), so the fast tests hold the port's plain version against the
-oracle the JAX tests use, hashlib, and against the JAX package's host-side
-padding; a slow-tier test runs the live JAX function on the same words.
+The JAX package's SHA tests are slow-tier on the CPU (XLA compiles of
+every SHA width), so most fast tests hold the port's plain version against
+the oracle the JAX tests use, hashlib, and against the JAX package's
+host-side padding; the many-message entry of the witness step is also held
+against the live JAX SHA-224/256 at B = 5 (about a second of compiles), and
+a slow-tier test runs the live JAX function on other words.
 """
 
 import hashlib
@@ -76,6 +78,54 @@ def test_batch_dims_and_wrapper_contract():
     for algo in (160, 384, 512):
         with pytest.raises(NotImplementedError):
             sha2.sha_hash_chunks(words, algo)
+
+
+@pytest.mark.parametrize("with_dg15", [False, True])
+def test_many_matches_jax_per_message_and_hashlib(with_dg15):
+    """sha_hash_chunks_many, the witness step's one call, on the step's
+    messages (dg1, dg15, ec, sa of nb 2, 3, 4, 2; dg15 only with active
+    auth) with SA under SHA-224 and EC under SHA-256 as SIG_ALGO 24 hashes
+    them, at B = 5: equal to the JAX package's SHA-224/256 (its
+    sha_hash_chunks, which on the CPU takes the XLA path that the JAX tests
+    hold equal to the Pallas sha2_32_chunks; the kernel itself, interpreted,
+    takes minutes for one block), to the port's per-message entry and to
+    hashlib. On CPU tensors the wrapper counts no launch."""
+    nbs, algos = [2, 3, 4, 2], [256, 256, 256, 224]
+    if not with_dg15:
+        nbs, algos = nbs[:1] + nbs[2:], algos[:1] + algos[2:]
+    texts = [[bytes(rng.randrange(256) for _ in range(
+        64 * nb - 9 - rng.randrange(40))) for _ in range(5)] for nb in nbs]
+    words = [_batch(ms) for ms in texts]
+    before = cuda_sha2.sha2_32_chunks_many.launches
+    got = sha2.sha_hash_chunks_many(words, algos)
+    assert cuda_sha2.sha2_32_chunks_many.launches == before
+    assert len(got) == len(words)
+    for out, w, algo, ms in zip(got, words, algos, texts):
+        torch.testing.assert_close(out, sha2.sha_hash_chunks(w, algo),
+                                   rtol=0, atol=0)
+        np.testing.assert_array_equal(
+            out.numpy(), np.asarray(jsha2.sha_hash_chunks(
+                w.numpy().astype(np.uint32), algo)).astype(np.int64))
+        assert _digests(out) == [hashlib.new(f"sha{algo}", m).digest()
+                                 for m in ms]
+
+
+def test_many_contract():
+    words = _batch([bytes([i]) * 10 for i in range(6)])
+    out = sha2.sha_hash_chunks_many([words.reshape(16, 2, 3)] * 2, [256, 224])
+    assert [o.shape for o in out] == [(8, 2, 3), (7, 2, 3)]
+    torch.testing.assert_close(out[1].reshape(7, 6),
+                               sha2.sha_hash_chunks(words, 224),
+                               rtol=0, atol=0)
+    for algos in ([256, 160], [384], [512, 256]):
+        with pytest.raises(NotImplementedError):
+            sha2.sha_hash_chunks_many([words] * len(algos), algos)
+    with pytest.raises(ValueError):
+        cuda_sha2.sha2_32_chunks_many([words] * 5, [256] * 5)
+    with pytest.raises(ValueError):
+        cuda_sha2.sha2_32_chunks_many([words, words[:, :5]], [256, 256])
+    with pytest.raises(ValueError):
+        cuda_sha2.sha2_32_chunks_many([words], [512])
 
 
 @pytest.mark.slow

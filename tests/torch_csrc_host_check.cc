@@ -12,6 +12,7 @@
 #include "babyjubjub.cuh"
 #include "bignum.cuh"
 #include "fr_bn254.cuh"
+#include "fr_slice.cuh"
 #include "fr_team.cuh"
 #include "loop_bodies.cuh"
 #include "poseidon.cuh"
@@ -145,6 +146,20 @@ void warp_r2(const int64_t* n, const int64_t* mu, int k, int64_t* out) {
       }
     }
   });
+}
+
+// K7's lane body (frs::mul_chain_lane) on lanes 0..B of a batch of B, a
+// team of 8 / W coroutines a lane; lane B runs past the batch and must
+// store nothing
+template <int W>
+void chain_lanes(const int64_t* a, const int64_t* c, int c_bcast,
+                 int64_t* out, int n, int B) {
+  constexpr int TW = fr::NW / W;
+  for (long lane = 0; lane <= B; ++lane)
+    run_threads(TW, [&](unsigned i) {
+      frs::mul_chain_lane<W>(wp::Group<TW>{i, 0}, a, c, c_bcast, out, n,
+                             lane, B);
+    });
 }
 
 static fr::Fe load(const int64_t* x) { return fr::to_mont(fr::load_limbs(x, 1)); }
@@ -348,6 +363,52 @@ int host_warp_r2(const int64_t* n, const int64_t* mu, int k, int64_t* out) {
     case 1: warp_r2<1>(n, mu, k, out); return 0;
     case 2: warp_r2<2>(n, mu, k, out); return 0;
     case 5: warp_r2<5>(n, mu, k, out); return 0;
+  }
+  return -1;
+}
+
+// K1's many-message plan for n messages of nb[i] SHA blocks and B lanes:
+// for thread t of thread block b, thread_msg[32 b + t] is the caller's
+// index of the message it hashes (-1 past the batch) and thread_lane[32 b
+// + t] its lane. Returns the launch's number of thread blocks.
+int host_sha_many_map(int n, const int* nb, int B, int* thread_msg,
+                      long* thread_lane) {
+  static int64_t base[sha::MAX_MSGS];        // message i is at base + i
+  const int64_t* msg[sha::MAX_MSGS];
+  int64_t* out[sha::MAX_MSGS];
+  int is224[sha::MAX_MSGS] = {};
+  for (int i = 0; i < n; ++i) msg[i] = out[i] = base + i;
+  const sha::Many m = sha::plan_many(n, msg, out, nb, is224, B);
+  const int blocks = sha::many_blocks(m);
+  for (int b = 0; b < blocks; ++b)
+    for (int t = 0; t < sha::MANY_THREADS; ++t) {
+      const sha::Chunk c = sha::block_chunk(m, b);
+      const long lane = c.lane0 + t;
+      thread_msg[b * sha::MANY_THREADS + t] =
+          lane < B ? (int)(m.msg[c.slot] - base) : -1;
+      thread_lane[b * sha::MANY_THREADS + t] = lane;
+    }
+  return blocks;
+}
+
+// K1's many-message entry on the host: every thread of every thread block
+// of the launch (sha::many_thread); msg[i] (16 nb[i], B), out[i] (8, B)
+void host_sha_many(int n, const int64_t* const* msg, int64_t* const* out,
+                   const int* nb, const int* is224, int B) {
+  const sha::Many m = sha::plan_many(n, msg, out, nb, is224, B);
+  for (int b = 0; b < sha::many_blocks(m); ++b)
+    for (int t = 0; t < sha::MANY_THREADS; ++t) sha::many_thread(m, b, t);
+}
+
+// K7 with a team of 8 / W threads a lane: a, out (16, B); c (16, B) or
+// (16, 1) when c_bcast. Returns -1 for a W that does not divide 8.
+int host_fr_chain(int W, const int64_t* a, const int64_t* c, int c_bcast,
+                  int64_t* out, int n, int B) {
+  switch (W) {
+    case 1: chain_lanes<1>(a, c, c_bcast, out, n, B); return 0;
+    case 2: chain_lanes<2>(a, c, c_bcast, out, n, B); return 0;
+    case 4: chain_lanes<4>(a, c, c_bcast, out, n, B); return 0;
+    case 8: chain_lanes<8>(a, c, c_bcast, out, n, B); return 0;
   }
   return -1;
 }
