@@ -11,6 +11,15 @@ launch counter set to 0 just before it and read just after:
   (RSA-2048 PKCS#1 v1.5, e = 65537, SHA-256, TD3, RSA-1024 active auth,
   80-level SMT) at batch 1024: K1's many-message entry (the step's four
   SHA messages in one launch), K2-K4 and K5's affine entry;
+* the ECDSA path: the same step on
+  registerIdentity_21_256_3_4_600_248_20_1496_3_256 (ECDSA over
+  brainpoolP256r1 with SHA-256, a P-256 active-auth key) at batch 1024:
+  K1's many-message entry, K3, K4 and K5's affine entry, the ECDSA check
+  in plain PyTorch; no K2;
+* the RSA-PSS path: registerIdentity_11_256_3_4_600_248_1_1496_3_256
+  (RSA-2048 PSS, SHA-256, salt 32, RSA-1024 active auth) at batch 1024:
+  K1's many-message entry, K1's per-message entry (MGF1 and M'), K2-K4 and
+  K5's affine entry;
 * the field-muls/s path: tools/microbench_field at batch 1024, 256
   chained products a call: K6, K7, K8;
 * the probe battery: tools/probe_nvcc: K9.
@@ -39,6 +48,15 @@ The script
    affine entry moved during that forward (K1's per-message entry and K5's
    extended one not at all); counts the CUDA kernels of one forward
    (torch.profiler) and times its stages;
+   builds the ECDSA and RSA-PSS paths' inputs, runs their forwards and
+   checks every lane's four public outputs against the oracles (computed
+   in a pool of worker processes, stopped with the script), the verdicts
+   (one lane with a flipped signature must fail sig_ok) and the launch
+   counters (K2 off the ECDSA path, K1's per-message entry on the PSS
+   path only), times one warm forward of each and holds K2 at k = 192
+   (RSA-3072) with e = 37187 against its plain version; the profiler's
+   session counts the CUDA kernels of one forward of each path, with the
+   device time of each hand-written kernel in it;
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
@@ -49,6 +67,8 @@ Any failed check raises, and the script exits non-zero.
 """
 
 import json
+import multiprocessing
+import os
 import random
 import subprocess
 import sys
@@ -83,6 +103,8 @@ from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 from passport_zk_circuits_tpu_torch.utils import profiling
 
 FLAGSHIP = "registerIdentity_1_256_3_4_600_248_1_1496_3_256"
+ECDSA_PATH = "registerIdentity_21_256_3_4_600_248_20_1496_3_256"
+PSS_PATH = "registerIdentity_11_256_3_4_600_248_1_1496_3_256"
 BATCH = 1024
 CHAINED_STEPS = 3
 SCAN_LEN = 256                  # products per call on the field-muls/s path
@@ -130,6 +152,23 @@ WITNESS_KERNELS = ("sha2_32_chunks_many", "pow_mod", "poseidon_ex",
 # many-message K1 entry and K5's affine one
 OFF_PATH = ("sha2_32_chunks", "ladder")
 FIELD_KERNELS = ("mul", "mul_chain", "run_loop")
+# the other SIG_ALGO paths: (config, kernels that must launch, kernels that
+# must not)
+ALGO_PATHS = {
+    "ecdsa": (ECDSA_PATH, ("sha2_32_chunks_many", "poseidon_ex", "smt_climb",
+                           "ladder_affine"),
+              ("pow_mod", "sha2_32_chunks", "ladder")),
+    "rsa-pss": (PSS_PATH, ("sha2_32_chunks_many", "sha2_32_chunks",
+                           "pow_mod", "poseidon_ex", "smt_climb",
+                           "ladder_affine"), ("ladder",)),
+}
+# the hand-written kernels' symbols in a profile -> their KERNELS name
+KERNEL_OF_SYMBOL = {"sha256_many_kernel": "sha2_32_chunks_many",
+                    "sha256_kernel": "sha2_32_chunks",
+                    "rsa_pow_kernel": "pow_mod",
+                    "poseidon_kernel": "poseidon_ex",
+                    "smt_climb_kernel": "smt_climb",
+                    "ladder_kernel": "ladder_affine"}
 # K9's kernel probes -> the csrc/probe.cu kernel each launches
 PROBE_KERNELS = {"basic": "basic_kernel", "mul_wide": "mul_wide_kernel",
                  "smem_dynamic_large": "smem_kernel",
@@ -365,49 +404,61 @@ def kernel_symbol(name):
     return name.split("(")[0].removeprefix("void ").split("<")[0]
 
 
-def device_profile(p, inp, entries):
+def device_profile(forwards, entries):
     """One torch.profiler session (CPU and CUDA activities; a session after
-    another lost its first kernels on the card): one forward, then every
-    marked entry's fn twice over, a warm round and a timed one, each call
-    fenced by a synchronize, so the session's last kernels in order of
+    another lost its first kernels on the card): each forward of forwards
+    ((label, fn) pairs) inside a record_function range of its own, then
+    every marked entry's fn twice over, a warm round and a timed one, each
+    call fenced by a synchronize, so the session's last kernels in order of
     start are the timed calls' in turn, and those before the warm round
-    the forward's. A launch of the session without its kernel record, or a
-    warm or timed call whose kernels are not the ones its entry names,
-    fails the run: a lost record would shift every later time onto the
-    wrong entry. Records each marked kernel's device microseconds in its
-    entry: the time of the short kernels whose CUDA-event times measure the
-    host that issues them. Returns the forward's CUDA kernels, their summed
-    device ms and its wall ms (host clock); the device's idle share is
-    1 - device / wall. Memory copies and sets are not counted as
-    kernels."""
+    the forwards'. A kernel belongs to the forward whose range holds its
+    launch (the host event with the kernel record's correlation id). A
+    launch of the session without its kernel record, a forward's kernel
+    without its launch, or a warm or timed call whose kernels are not the
+    ones its entry names, fails the run: a lost record would shift every
+    later time onto the wrong entry. Records each marked kernel's device
+    microseconds in its entry: the time of the short kernels whose
+    CUDA-event times measure the host that issues them. Returns, for each
+    forward, its CUDA kernels, their summed device ms, its wall ms (host
+    clock; the device's idle share is 1 - device / wall) and the count and
+    device us of each hand-written kernel in it. Memory copies and sets
+    are not counted as kernels."""
     marked = [e for e in entries if "_profile" in e]
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    wall_ms = {}
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        ri.forward(p, inp)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        for label, fn in forwards:
+            with torch.profiler.record_function(f"chip_smoke:{label}"):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms[label] = (time.perf_counter() - t0) * 1e3
         for e in marked + marked:
             e["_profile"][0]()
             torch.cuda.synchronize()
     events = prof.events()
+    cpu = [ev for ev in events
+           if ev.device_type == torch.autograd.DeviceType.CPU]
+    # the device side of a record_function range is an annotation, not a
+    # kernel
     kernels = sorted((ev for ev in events
                       if ev.device_type == torch.autograd.DeviceType.CUDA
-                      and not ev.name.startswith(("Memcpy", "Memset"))),
+                      and not ev.name.startswith(("Memcpy", "Memset",
+                                                  "chip_smoke:"))),
                      key=lambda ev: ev.time_range.start)
     # a launch and its kernel record share the launch's correlation id
-    lost = ({ev.id for ev in events
-             if ev.device_type == torch.autograd.DeviceType.CPU
-             and ev.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    launch_of = {ev.id: ev for ev in cpu if ev.name.startswith("cu")}
+    lost = ({ev.id for ev in cpu
+             if ev.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
             - {ev.id for ev in kernels})
     check(not lost, f"profiler lost the kernel records of {len(lost)} "
           "launch(es)")
     expected = [s for e in marked for s in e["_profile"][1]]
     n_short = len(expected)
     check(len(kernels) > 2 * n_short,
-          f"profiler saw {len(kernels)} kernels, not the forward's and "
+          f"profiler saw {len(kernels)} kernels, not the forwards' and "
           f"2 x {n_short}")
     forward, warm, short = (kernels[:-2 * n_short],
                             kernels[-2 * n_short:-n_short],
@@ -425,8 +476,31 @@ def device_profile(p, inp, entries):
         print(f"  {e['name']}: {n} launch(es), device "
               f"{sum(e['profiler_device_us']):.3f} us (torch.profiler; "
               f"{', '.join(sorted(set(symbols)))})")
-    device_ms = sum(ev.time_range.elapsed_us() for ev in forward) / 1e3
-    return len(forward), device_ms, wall_ms
+    ranges = {ev.name.removeprefix("chip_smoke:"): ev.time_range
+              for ev in cpu if ev.name.startswith("chip_smoke:")}
+    check(sorted(ranges) == sorted(wall_ms), f"profiler ranges {ranges}")
+    stats = {label: {"kernels": 0, "device_us": 0.0, "by_kernel": {}}
+             for label in wall_ms}
+    for k in forward:
+        launch = launch_of.get(k.id)
+        check(launch is not None, f"kernel {k.name} without its launch")
+        t = launch.time_range.start
+        label = next((lb for lb, r in ranges.items()
+                      if r.start <= t <= r.end), None)
+        check(label is not None, f"kernel {k.name} launched outside the "
+              "forwards")
+        st = stats[label]
+        us = k.time_range.elapsed_us()
+        st["kernels"] += 1
+        st["device_us"] += us
+        name = KERNEL_OF_SYMBOL.get(kernel_symbol(k.name))
+        if name:
+            n, t_us = st["by_kernel"].get(name, (0, 0.0))
+            st["by_kernel"][name] = (n + 1, t_us + us)
+    return {label: {"kernels": st["kernels"],
+                    "device_ms": st["device_us"] / 1e3,
+                    "wall_ms": wall_ms[label], "by_kernel": st["by_kernel"]}
+            for label, st in stats.items()}
 
 
 def words_to_bytes(col) -> bytes:
@@ -825,6 +899,7 @@ def phase_probe(dev, rng):
     check(not failed, f"probes failed: {failed}")
     launches = cuda_probe.probe.launches
     check(launches > 0, "probe battery launched no K9 kernel")
+    print(f"  the probe battery: launches {{'probe': {launches}}}")
     names = [n for n in cuda_probe.KERNEL_PROBES if n != "refused_launch"]
     ins = {n: cuda_probe.inputs(n, dev) for n in names}
     outs = {n: cuda_probe.plain(n, i0, i1) for n, (i0, i1) in ins.items()}
@@ -843,6 +918,7 @@ def phase_probe(dev, rng):
     to_profile(entry, lambda: [cuda_probe.probe(n, i0, i1)
                                for n, (i0, i1) in ins.items()],
                [PROBE_KERNELS[n] for n in ins])
+    entry["launches_by_path"] = {"the probe battery": launches}
     entry["launches"] = launches
     entry["shape"] = (f"{len(results)} probes; timed: {len(names)} kernel "
                       "probes, one launch each")
@@ -870,17 +946,24 @@ def reset_launches():
         fn.launches = 0
 
 
-def read_launches(names, entries, path, off_path=()):
-    """Check that each kernel in names launched on the path just run, and
-    record its count in its JSON entry; kernels in off_path, which no path
-    runs, get theirs from this path's run (0) too."""
-    launches = {name: KERNELS[name][0].launches for name in names}
-    print(f"  {path}: launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by {path}")
-    launches.update({name: KERNELS[name][0].launches for name in off_path})
+def read_launches(names, entries, path, off_path=(), own=()):
+    """Check that each kernel in names launched on the path just run and
+    that none in off_path did; record every kernel's count on the path in
+    its JSON entry (launches_by_path), and as launches for the kernels in
+    own, whose own path this is (the witness step for K1-K5, the
+    field-muls/s path for K6-K8; the probe battery sets K9's)."""
+    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    print(f"  {path}: launches "
+          f"{ {n: launches[n] for n in (*names, *off_path)} }")
+    for name in names:
+        check(launches[name] > 0, f"kernel {name} was not launched by {path}")
+    for name in off_path:
+        check(launches[name] == 0, f"kernel {name} launched on {path}, "
+              "which does not run it")
     for e in entries:
-        if e["name"] in launches:
+        by_path = e.setdefault("launches_by_path", {})
+        by_path[path] = launches[e["name"]]
+        if e["name"] in own:
             e["launches"] = launches[e["name"]]
 
 
@@ -899,7 +982,7 @@ def phase_slice(dev, rng, entries):
     first_s = time.perf_counter() - t0
     print(f"  forward: {first_s * 1e3:.1f} ms (first call)")
     read_launches(WITNESS_KERNELS, entries, "the witness step",
-                  off_path=OFF_PATH)
+                  off_path=OFF_PATH, own=WITNESS_KERNELS + OFF_PATH)
     check(cuda_sha2.sha2_32_chunks_many.launches == 1,
           "the witness step did not hash its messages in one K1 launch")
 
@@ -918,6 +1001,96 @@ def phase_slice(dev, rng, entries):
         check(got == want, f"{name} != oracle on sampled lanes")
     print(f"  outputs equal the oracles on {len(lanes)} lanes; verdicts ok")
     return p, inp
+
+
+def _expected_chunk(name, pps):
+    """The oracles' four public outputs of passports of config `name` (run
+    in a pool's worker process)."""
+    p = params.CircuitParams.from_name(name)
+    return [synthetic.expected_outputs(p, pp) for pp in pps]
+
+
+def algo_batch(p, rng):
+    """BATCH synthetic passports sharing the signer and AA keys; lane 1
+    gets a bit of its signature (s for ECDSA) flipped after signing."""
+    signer = aa = None
+    pps = []
+    for _ in range(BATCH):
+        pp = synthetic.make_synthetic_passport(p, rng, signer_key=signer,
+                                               aa_key=aa)
+        signer, aa = pp["signer_key"], pp["aa_key"]
+        pps.append(pp)
+    sig = pps[1]["signature"]
+    pps[1] = dict(pps[1], signature=(sig[0], sig[1] ^ 1)
+                  if isinstance(sig, tuple) else sig ^ 1)
+    return pps
+
+
+PUBLIC = ("passport_hash", "dg1_commitment", "pk_identity_hash",
+          "dg15_pubkey_hash")
+
+
+def phase_algo_paths(dev, rng, entries, pool):
+    """The ECDSA and RSA-PSS paths at batch 1024, each through
+    register_identity.forward: launch counters zeroed just before the
+    first forward and read just after, the verdicts, every lane's four
+    public outputs against the oracles (the pool computes them while the
+    card runs), then one warm forward timed (host clock, synchronized).
+    Then K2 at k = 192 (RSA-3072, SIG_ALGO 4 and 14) with e = 37187 against
+    its plain version. Returns {path: (params, inputs, warm ms)}."""
+    runs = {}
+    for path, (name, on, off) in ALGO_PATHS.items():
+        p = params.CircuitParams.from_name(name)
+        t0 = time.perf_counter()
+        pps = algo_batch(p, rng)
+        oracles = pool.starmap_async(
+            _expected_chunk, [(name, pps[i:i + 64])
+                              for i in range(0, BATCH, 64)])
+        inp = builder.build_register_inputs(p, pps, dev)
+        print(f"  {path}: {BATCH} passports of {name} built in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = ri.forward(p, inp)
+        torch.cuda.synchronize()
+        print(f"  {path} forward: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+              "(first call)")
+        read_launches(on, entries, path, off_path=off)
+        flow, sig, smt_ok = (out[k].cpu() for k in ("flow_ok", "sig_ok",
+                                                    "smt_ok"))
+        check(bool(flow.all() and smt_ok.all()),
+              f"{path}: flow_ok / smt_ok not all true")
+        check(bool(sig[0]) and not sig[1] and bool(sig[2:].all()),
+              f"{path}: sig_ok must be false on lane 1 (flipped signature) "
+              "only")
+        want = [o for chunk in oracles.get() for o in chunk]
+        for key in PUBLIC:
+            check(fr.batch_from_limbs(out[key]) == [w[key] for w in want],
+                  f"{path}: {key} != oracle")
+        print(f"  {path}: every lane's four public outputs equal the "
+              "oracles; verdicts ok (lane 1's sig_ok false)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ri.forward(p, inp)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  {path}: one warm forward {warm_ms:.1f} ms (host clock, "
+              f"synchronized), batch {BATCH}; card: {CARD['name']}")
+        runs[path] = (p, inp, warm_ms)
+    sigs, mods, args = _rsa_case(dev, rng, 192, 37187)
+    outs, e192 = compare("pow_mod",
+                         lambda: cuda_rsa.pow_mod(*args, 37187),
+                         lambda: cuda_rsa.pow_mod_plain(*args, 37187),
+                         nbytes=rsa_bytes(args, 192),
+                         int_ops=modexp_ops(96, 37187) * BATCH)
+    check(bn.limbs_to_ints_batch(outs[0][:, :8]) ==
+          [pow(s, 37187, m) for s, m in zip(sigs[:8], mods[:8])],
+          "pow_mod k=192 e=37187 != pow()")
+    entry = next(e for e in entries if e["name"] == "pow_mod")
+    entry["k192_e37187"] = {key: e192[key] for key in
+                            ("ms", "plain_ms", "bound_ms", "bound_by")}
+    return runs
 
 
 def stage_ms(p, inp, reps=3):
@@ -983,7 +1156,8 @@ def field_path(dev, entries):
     reset_launches()
     res = microbench_field.run(dev, BATCH, SCAN_LEN)
     torch.cuda.synchronize()
-    read_launches(FIELD_KERNELS, entries, "the field-muls/s path")
+    read_launches(FIELD_KERNELS, entries, "the field-muls/s path",
+                  own=FIELD_KERNELS)
     microbench_field.report(res, BATCH, SCAN_LEN)
     return microbench_field.field_muls_per_s(res["k7_fused"], BATCH,
                                              SCAN_LEN)
@@ -1016,6 +1190,7 @@ def card_rates(card):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     CARD["int_ops_per_s"] = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
     CARD["sm_hz"] = mhz * 1e6
+    CARD["name"] = card
     print(f"bound model: {sms} SMs x {mhz:.0f} MHz (clocks.max.sm) x "
           f"{INT_OPS_PER_CLOCK_PER_SM} int32 ops/clock = "
           f"{CARD['int_ops_per_s']:.4g} int32 ops/s; HBM "
@@ -1023,6 +1198,7 @@ def card_rates(card):
 
 
 def main():
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
@@ -1053,12 +1229,29 @@ def main():
 
     print("phase slice")
     p, inp = phase_slice(dev, rng, entries)
-    print("one forward, then one call of each short kernel, under "
-          "torch.profiler")
-    n_kernels, device_ms, wall_ms = device_profile(p, inp, entries)
-    print(f"one forward under torch.profiler: {n_kernels} CUDA kernels, "
-          f"{device_ms:.2f} ms device, {wall_ms:.1f} ms wall, device idle "
-          f"{100 * (1 - device_ms / wall_ms):.1f} %; card: {card}")
+    print("phase algo_paths (ECDSA, RSA-PSS)")
+    workers = max(1, min(8, (os.cpu_count() or 2) - 2))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        runs = phase_algo_paths(dev, rng, entries, pool)
+    print("one forward of each path, then one call of each short kernel, "
+          "under torch.profiler")
+    forwards = [("witness step", lambda: ri.forward(p, inp))] + [
+        (path, lambda q=q, x=x: ri.forward(q, x))
+        for path, (q, x, _) in runs.items()]
+    t0 = time.perf_counter()
+    prof = device_profile(forwards, entries)
+    print(f"  the profiler's session and its events: "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    for label, st in prof.items():
+        print(f"one {label} forward under torch.profiler: {st['kernels']} "
+              f"CUDA kernels, {st['device_ms']:.2f} ms device, "
+              f"{st['wall_ms']:.1f} ms wall, device idle "
+              f"{100 * (1 - st['device_ms'] / st['wall_ms']):.1f} %; card: "
+              f"{card}")
+        for name, (n, us) in sorted(st["by_kernel"].items()):
+            print(f"  {label}: {name} {n} launch(es), {us:.3f} us device")
+            e = next(e for e in entries if e["name"] == name)
+            e.setdefault("forward_device_us_by_path", {})[label] = us
     for name, ms in stage_ms(p, inp).items():
         print(f"  stage {name}: {ms:.2f} ms (mean of 3)")
     dt = chained_steps(p, inp)
@@ -1074,6 +1267,8 @@ def main():
           f"field-muls/s; card: {card}")
     check(len(entries) == len(KERNELS) and
           all("launches" in e for e in entries), "a kernel has no launches")
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the "
+          "build included (host clock)")
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

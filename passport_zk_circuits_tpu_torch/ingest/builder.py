@@ -1,9 +1,11 @@
 """Host-side input builder: raw passport blobs -> batched tensors for the
 RegisterIdentity forward.
 
-Counterpart of ``passport_zk_circuits_tpu/ingest/builder.py`` (RSA family):
-SHA padding of every blob, bignum chunking into 16-bit limbs and the
-Barrett precompute, in numpy, then one conversion to int64 tensors.
+Counterpart of ``passport_zk_circuits_tpu/ingest/builder.py``: SHA padding
+of every blob (512- or 1024-bit blocks), bignum chunking into 16-bit limbs
+(an RSA modulus and signature; an ECDSA key as X || Y and signature as
+r || s, with an unused zero mu), and the Barrett precompute, in numpy, then
+one conversion to int64 tensors.
 """
 
 from __future__ import annotations
@@ -35,10 +37,6 @@ def build_register_inputs_numpy(p: params.CircuitParams, passports):
     """passports: list of dicts from ingest.synthetic. Returns the port's
     RegisterIdentityInputs with numpy uint32 fields, laid out exactly as
     the JAX package's builder lays them out."""
-    if p.sig.family != "rsa":
-        raise NotImplementedError(
-            f"{p.sig.family} inputs are not ported yet "
-            "(ROADMAP queue 1: RSA-PSS, ECDSA)")
     k = p.sig.key_bits // 16
     B = len(passports)
     dg1_w = _padded_words([pp["dg1"] for pp in passports],
@@ -53,16 +51,29 @@ def build_register_inputs_numpy(p: params.CircuitParams, passports):
     else:
         dg15_w = np.zeros((p.dg15_block_number * p.dg_hash_block_size // 32,
                            B), dtype=np.uint32)
-    mods = [pp["pubkey"] for pp in passports]
+    if p.sig.family == "ecdsa":
+        kf = p.sig.key_bits // 32           # key_bits = 2 x field bits
+
+        def pair(key):
+            return np.concatenate([
+                bn.ints_to_limbs_batch([pp[key][i] for pp in passports], kf)
+                for i in (0, 1)])
+        pubkey, signature = pair("pubkey"), pair("signature")
+        mu = np.zeros((k + 1, B), dtype=np.uint32)          # unused
+    else:
+        mods = [pp["pubkey"] for pp in passports]
+        pubkey = bn.ints_to_limbs_batch(mods, k)
+        signature = bn.ints_to_limbs_batch(
+            [pp["signature"] for pp in passports], k)
+        mu = bn.barrett_mu_batch(mods, k)
     passport = PassportInputs(
         dg1_words=dg1_w,
         dg15_words=dg15_w,
         ec_words=ec_w,
         sa_words=sa_w,
-        signature=bn.ints_to_limbs_batch(
-            [pp["signature"] for pp in passports], k),
-        pubkey=bn.ints_to_limbs_batch(mods, k),
-        pubkey_mu=bn.barrett_mu_batch(mods, k),
+        signature=signature,
+        pubkey=pubkey,
+        pubkey_mu=mu,
         slave_root=fr.batch_to_limbs([pp["slave_root"] for pp in passports]),
         slave_branches=np.stack(
             [fr.batch_to_limbs([pp["slave_branches"][i] for pp in passports])

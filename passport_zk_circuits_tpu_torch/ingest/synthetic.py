@@ -1,12 +1,12 @@
 """Synthetic passports + pure-Python output oracles, free of JAX.
 
-Counterpart of ``passport_zk_circuits_tpu/ingest/synthetic.py`` for the RSA
-PKCS#1 v1.5 family with RSA or no active authentication. Given the same
-``random.Random`` state it draws the same numbers in the same order, so it
-makes the same passports as the JAX package. It uses the port's own copies
-of the parameter registry, the Poseidon and BabyJubJub oracles and RSA key
-generation (``models/params``, ``utils/*``). RSA-PSS, ECDSA and ECDSA
-active authentication are still to port (ROADMAP queue 1) and raise.
+Counterpart of ``passport_zk_circuits_tpu/ingest/synthetic.py`` for every
+signature family (RSA PKCS#1 v1.5, RSA-PSS, ECDSA) and active-auth key (RSA
+or ECDSA). Given the same ``random.Random`` state it draws the same numbers
+in the same order, so it makes the same passports as the JAX package. It
+uses the port's own copies of the parameter registry, the curve registry and
+the Poseidon, BabyJubJub, ECDSA and RSA oracles (``models/params``,
+``ops/curves``, ``utils/*``) and the port's RSA-PSS host oracle.
 """
 
 from __future__ import annotations
@@ -15,8 +15,11 @@ import hashlib
 import random
 
 from ..ops import rsa as rsa_ops
+from ..ops import rsapss
+from ..ops.curves import CURVES
 from ..models import params
 from ..utils import babyjubjub_ref as bref
+from ..utils import ecdsa_ref
 from ..utils import poseidon_ref as pref
 from ..utils import rsa_keygen
 
@@ -36,23 +39,27 @@ def _rand_bytes(rng: random.Random, n: int) -> bytes:
     return bytes(rng.randrange(256) for _ in range(n))
 
 
+# ECDSA active-auth algo -> (curve, coordinate bytes)
+AA_CURVES = {20: ("p256", 32), 21: ("brainpoolP256r1", 32),
+             22: ("brainpoolP320r1", 40), 23: ("secp192r1", 24)}
+
+
 def make_synthetic_passport(p: params.CircuitParams, rng: random.Random,
                             signer_key=None, aa_key=None) -> dict:
     """One synthetic passport consistent with `p`'s shifts: raw blobs (dg1,
-    dg15, ec, sa), the signer's modulus and signature, sk_identity and the
-    slave-SMT anchors (a one-leaf tree, all siblings zero)."""
+    dg15, ec, sa), the signer's public key (RSA modulus, or ECDSA (X, Y))
+    and signature (an int, or ECDSA (r, s)), sk_identity and the slave-SMT
+    anchors (a one-leaf tree, all siblings zero)."""
     sig = p.sig
-    if sig.family != "rsa":
-        raise NotImplementedError(
-            f"synthetic {sig.family} passports are not ported yet "
-            "(ROADMAP queue 1: RSA-PSS, ECDSA)")
-    if p.aa_signature_algo >= 20:
-        raise NotImplementedError(
-            "ECDSA active authentication is not ported yet "
-            "(ROADMAP queue 1: All SIG_ALGO branches)")
-    if signer_key is None:
-        signer_key = rsa_keygen.gen_rsa_key(sig.key_bits, rng, sig.exp)
-    n, _, d = signer_key
+    if sig.family == "ecdsa":
+        curve = CURVES[sig.curve]
+        if signer_key is None:
+            signer_key = ecdsa_ref.keygen(curve, rng)
+        d_ec, q_ec = signer_key
+    else:
+        if signer_key is None:
+            signer_key = rsa_keygen.gen_rsa_key(sig.key_bits, rng, sig.exp)
+        n, _, d = signer_key
 
     dg_hb = p.dg_hash_block_size
     sig_hb = p.sig_hash_block_size
@@ -61,15 +68,24 @@ def make_synthetic_passport(p: params.CircuitParams, rng: random.Random,
     # DG1: TD3 = 93 bytes MRZ, TD1 = 95 bytes
     dg1 = _rand_bytes(rng, 93 if p.document_type == 3 else 95)
 
-    # DG15: active-auth public-key blob with the RSA-1024 modulus at aa_shift
+    # DG15: active-auth public-key blob, at aa_shift the RSA-1024 modulus or
+    # the ECDSA key's X then Y
     dg15 = b""
     if p.aa_signature_algo != 0:
         cap = p.dg15_block_number * dg_hb // 8 - (9 if dg_hb == 512 else 17)
         body = bytearray(_rand_bytes(rng, cap))
-        if aa_key is None:
-            aa_key = rsa_keygen.gen_rsa_key(1024, rng)
-        body[p.aa_shift // 8:p.aa_shift // 8 + 128] = \
-            aa_key[0].to_bytes(128, "big")
+        off = p.aa_shift // 8
+        if p.aa_signature_algo < 20:
+            if aa_key is None:
+                aa_key = rsa_keygen.gen_rsa_key(1024, rng)
+            body[off:off + 128] = aa_key[0].to_bytes(128, "big")
+        else:
+            aa_curve, fb = AA_CURVES[p.aa_signature_algo]
+            if aa_key is None:
+                aa_key = ecdsa_ref.keygen(CURVES[aa_curve], rng)
+            qx, qy = aa_key[1]
+            body[off:off + fb] = qx.to_bytes(fb, "big")
+            body[off + fb:off + 2 * fb] = qy.to_bytes(fb, "big")
         dg15 = bytes(body)
 
     # encapsulated content: digests of dg1/dg15 at the compile-time shifts
@@ -98,14 +114,26 @@ def make_synthetic_passport(p: params.CircuitParams, rng: random.Random,
     sa[p.ec_shift // 8:p.ec_shift // 8 + ech_bytes] = _hash(ec, ec_algo)
     sa = bytes(sa)
 
-    signature = rsa_ops.sign_pkcs1v15(_hash(sa, sig.hash_len), d, n,
-                                      sig.key_bits)
-    pubkey_hash = rsa_pubkey_hash_oracle(n)
+    sa_digest = _hash(sa, sig.hash_len)
+    if sig.family == "rsa":
+        signature = rsa_ops.sign_pkcs1v15(sa_digest, d, n, sig.key_bits)
+        pubkey = n
+        pubkey_hash = rsa_pubkey_hash_oracle(n)
+    elif sig.family == "rsapss":
+        signature = rsapss.sign_pss(sa_digest, d, n, sig.key_bits,
+                                    sig.salt_len, rng)
+        pubkey = n
+        pubkey_hash = rsa_pubkey_hash_oracle(n)
+    else:
+        signature = ecdsa_ref.sign(curve, d_ec, sa_digest, rng)  # (r, s)
+        pubkey = q_ec                                            # (X, Y)
+        pubkey_hash = ecdsa_pubkey_hash_oracle(q_ec[0], q_ec[1],
+                                               sig.key_bits // 2)
     sk_identity = rng.randrange(1, pref.P)
 
     return {
         "dg1": dg1, "dg15": dg15, "ec": ec, "sa": sa,
-        "signature": signature, "pubkey": n,
+        "signature": signature, "pubkey": pubkey,
         "sk_identity": sk_identity,
         "slave_root": pref.poseidon([pubkey_hash, pubkey_hash, 1]),
         "slave_branches": [0] * 80,
@@ -153,6 +181,12 @@ def rsa_pubkey_hash_oracle(n: int) -> int:
     return pref.poseidon(chunks)
 
 
+def ecdsa_pubkey_hash_oracle(x: int, y: int, field_bits: int) -> int:
+    """Poseidon2(X, Y), each cut to its low min(field, 248) bits."""
+    mask = (1 << min(field_bits, 248)) - 1
+    return pref.poseidon([x & mask, y & mask])
+
+
 def dg1_commitment_oracle(dg1: bytes, document_type: int,
                           sk_identity: int) -> int:
     bits = _bits_list(dg1)
@@ -167,17 +201,24 @@ def pk_identity_hash_oracle(sk_identity: int) -> int:
 
 
 def dg15_pubkey_hash_oracle(p: params.CircuitParams, dg15: bytes) -> int:
-    if p.aa_signature_algo == 0:
+    aa = p.aa_signature_algo
+    if aa == 0:
         return 0
-    if p.aa_signature_algo >= 20:
-        raise NotImplementedError(
-            "ECDSA active authentication is not ported yet "
-            "(ROADMAP queue 1: All SIG_ALGO branches)")
     bits = _bits_list(dg15)
-    chunks = [be_bits_value(bits, p.aa_shift + j * 200, 200)
-              for j in range(4)]
-    chunks.append(be_bits_value(bits, p.aa_shift + 800, 224))
-    return pref.poseidon(chunks)
+    if aa < 20:
+        chunks = [be_bits_value(bits, p.aa_shift + j * 200, 200)
+                  for j in range(4)]
+        chunks.append(be_bits_value(bits, p.aa_shift + 800, 224))
+        return pref.poseidon(chunks)
+    field_size, keep = 256, 248
+    if aa == 22:
+        field_size = 320
+    if aa == 23:
+        field_size, keep = 192, 192
+    xy = field_size - keep
+    return pref.poseidon([be_bits_value(bits, p.aa_shift + xy, keep),
+                          be_bits_value(bits, p.aa_shift + field_size + xy,
+                                        keep)])
 
 
 def expected_outputs(p: params.CircuitParams, pp: dict) -> dict:

@@ -1,12 +1,12 @@
 """Batched PassportVerification: hash flow + signature + SMT inclusion.
 
 Counterpart of ``passport_zk_circuits_tpu/models/passport_verification.py``
-for the RSA PKCS#1 v1.5 signature family. RSA-PSS and ECDSA are still to
-port (ROADMAP queue 1, "RSA-PSS" and "ECDSA") and raise
-``NotImplementedError``. The faithfulness notes of the JAX module hold here
-too: only DG_HASH_TYPE bits of each digest are compared at the byte-aligned
-shifts, `passportHash` is the reversed-bit Bits2Num(252) recompose, and the
-slave-certificate SMT verdict is returned, not enforced.
+for every signature family: RSA PKCS#1 v1.5, RSA-PSS and ECDSA. The
+faithfulness notes of the JAX module hold here too: only DG_HASH_TYPE bits
+of each digest are compared at the byte-aligned shifts, `passportHash` is
+the reversed-bit Bits2Num(252) recompose, and the slave-certificate SMT
+verdict is returned, not enforced. The SHA-224/256 blobs are hashed in one
+K1 launch; SHA-1/384/512 blobs take the plain hashes.
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ import torch
 
 from ..ops import bitops
 from ..ops import field as fr
+from ..ops import ecdsa
 from ..ops import poseidon as pos
 from ..ops import rsa
+from ..ops import rsapss
 from ..ops import sha2
 from ..ops import smt
 from . import params
@@ -32,7 +34,7 @@ class PassportInputs(NamedTuple):
     ec_words: torch.Tensor            # (ec_blocks * 16, B)
     sa_words: torch.Tensor            # (32, B): 1024 bits padded
     signature: torch.Tensor           # (k, B)
-    pubkey: torch.Tensor              # (k, B) RSA modulus
+    pubkey: torch.Tensor              # (k, B) RSA modulus, or X || Y
     pubkey_mu: torch.Tensor           # (k+1, B) Barrett constant
     slave_root: torch.Tensor          # (16, B)
     slave_branches: torch.Tensor      # (16, 80, B)
@@ -66,6 +68,41 @@ def rsa_pubkey_hash(pubkey_l16):
     return pos.poseidon(chunks)
 
 
+def ecdsa_pubkey_hash(x_l16, y_l16, field_bits: int):
+    """Poseidon2(X, Y), each coordinate cut to its low min(field, 248)
+    bits."""
+    keep = min(field_bits, 248)
+    coords = []
+    for coord in (x_l16, y_l16):
+        limbs = coord.new_zeros((fr.NLIMBS,) + coord.shape[1:])
+        full = keep // 16
+        limbs[:full] = coord[:full]
+        if keep % 16:
+            limbs[full] = coord[full] & ((1 << (keep % 16)) - 1)
+        coords.append(limbs)
+    return pos.poseidon(coords)
+
+
+def hash_blobs(blobs):
+    """[(padded words (n_words, *B), algo)] -> [digest as (w, *B) 32-bit
+    words]. The SHA-224/256 blobs go to K1 together, in one launch; the
+    others to their plain hash, SHA-384/512 in hi/lo word pairs."""
+    many = [i for i, (_, algo) in enumerate(blobs) if algo in (224, 256)]
+    out = [None] * len(blobs)
+    if many:
+        digests = sha2.sha_hash_chunks_many([blobs[i][0] for i in many],
+                                            [blobs[i][1] for i in many])
+        for i, d in zip(many, digests):
+            out[i] = d
+    for i, (words, algo) in enumerate(blobs):
+        if algo in (384, 512):
+            dw = sha2.sha_hash_chunks(bitops.words32_to_words64(words), algo)
+            out[i] = dw.reshape((dw.shape[0] * 2,) + dw.shape[2:])
+        elif algo == 160:
+            out[i] = sha2.sha_hash_chunks(words, algo)
+    return out
+
+
 def forward(p: params.CircuitParams, inp: PassportInputs):
     """Returns a dict with passport_hash, pubkey_hash, dg1_hash_words,
     dg15_hash_words, sa_hash_words, flow_ok, sig_ok, smt_ok."""
@@ -76,18 +113,14 @@ def forward(p: params.CircuitParams, inp: PassportInputs):
         raise ValueError(
             f"invalid config: DG hash ({dg_algo}) wider than EC hash "
             f"({ec_algo}) — rejected by the reference at compile time")
-    if p.sig.family != "rsa":
-        raise NotImplementedError(
-            f"signature family {p.sig.family!r} is not ported yet "
-            "(ROADMAP queue 1: RSA-PSS, ECDSA)")
 
     # the four blobs are independent inputs (each digest is only compared
-    # with bytes of the next blob), so they are hashed in one launch
+    # with bytes of the next blob), so the SHA-224/256 ones share a launch
     blobs = [(inp.dg1_words, dg_algo)]
     if p.aa_signature_algo != 0:
         blobs.append((inp.dg15_words, dg_algo))
     blobs += [(inp.ec_words, ec_algo), (inp.sa_words, sa_algo)]
-    digests = sha2.sha_hash_chunks_many(*zip(*blobs))
+    digests = hash_blobs(blobs)
     dg1_flat, ec_flat, sa_flat = digests[0], digests[-2], digests[-1]
     dg15_flat = digests[1] if p.aa_signature_algo != 0 else None
     sa_bits = bitops.get_bits(sa_flat, 0, min(252, sa_algo))
@@ -109,9 +142,22 @@ def forward(p: params.CircuitParams, inp: PassportInputs):
     flow_ok = flow_ok & same(ec_flat, inp.sa_words, p.ec_shift)
 
     sig = p.sig
-    sig_ok = rsa.verify_pkcs1v15(inp.signature, inp.pubkey, inp.pubkey_mu,
-                                 sa_flat, sig.hash_len, sig.key_bits, sig.exp)
-    pubkey_hash = rsa_pubkey_hash(inp.pubkey)
+    if sig.family == "rsa":
+        sig_ok = rsa.verify_pkcs1v15(inp.signature, inp.pubkey,
+                                     inp.pubkey_mu, sa_flat, sig.hash_len,
+                                     sig.key_bits, sig.exp)
+        pubkey_hash = rsa_pubkey_hash(inp.pubkey)
+    elif sig.family == "rsapss":
+        sig_ok = rsapss.verify_pss(inp.signature, inp.pubkey, inp.pubkey_mu,
+                                   sa_flat, sig.hash_len, sig.key_bits,
+                                   sig.salt_len, sig.exp)
+        pubkey_hash = rsa_pubkey_hash(inp.pubkey)
+    else:
+        half = inp.pubkey.shape[0] // 2
+        x, y = inp.pubkey[:half], inp.pubkey[half:]
+        sig_ok = ecdsa.verify(sig.curve, x, y, inp.signature,
+                              bitops.get_bits(sa_flat, 0, sa_algo))
+        pubkey_hash = ecdsa_pubkey_hash(x, y, sig.key_bits // 2)
 
     smt_ok, _ = smt.verify(inp.slave_root, pubkey_hash, pubkey_hash,
                            inp.slave_branches)

@@ -3,8 +3,7 @@
 Counterpart of ``passport_zk_circuits_tpu/models/register_identity.py``.
 Outputs (batched Fr limbs): dg15_pubkey_hash, passport_hash, dg1_commitment,
 pk_identity_hash — the four public outputs of the reference builder — plus
-the flow / signature / SMT verdicts. ECDSA active authentication is still to
-port (ROADMAP queue 1, "All SIG_ALGO branches") and raises.
+the flow / signature / SMT verdicts.
 """
 
 from __future__ import annotations
@@ -26,21 +25,36 @@ class RegisterIdentityInputs(NamedTuple):
     sk_identity: torch.Tensor         # (16, B) Fr limbs
 
 
+def ecdsa_aa_bits(aa: int):
+    """(field bits, low bits kept of each coordinate) of an ECDSA active-auth
+    key: P-256 and brainpoolP256r1 (20, 21), brainpoolP320r1 (22),
+    secp192r1 (23, kept whole)."""
+    return {22: (320, 248), 23: (192, 192)}.get(aa, (256, 248))
+
+
 def dg15_pubkey_hash(p: params.CircuitParams, dg15_words):
-    """Active-auth public key hash: Poseidon5 of the RSA-1024 AA modulus in
-    big-endian chunks of 200+200+200+200+224 bits; 0 without AA."""
+    """Active-auth public key hash; 0 without AA. An RSA-1024 AA key
+    (algo < 20): Poseidon5 of the modulus in big-endian chunks of
+    200+200+200+200+224 bits. An ECDSA AA key: Poseidon2 of X and Y, each
+    cut to its low 248 bits (256- and 320-bit fields) or kept whole
+    (192-bit field, algo 23)."""
     aa = p.aa_signature_algo
     if aa == 0:
         return fr.const(0, dg15_words.shape[1:], dg15_words.device)
-    if aa >= 20:
-        raise NotImplementedError(
-            "ECDSA active authentication is not ported yet "
-            "(ROADMAP queue 1: All SIG_ALGO branches)")
-    chunks = [bitops.word_slice_to_fr(dg15_words, p.aa_shift + j * 200, 200,
-                                      msb_first=True) for j in range(4)]
-    chunks.append(bitops.word_slice_to_fr(dg15_words, p.aa_shift + 800, 224,
-                                          msb_first=True))
-    return pos.poseidon(chunks)
+    if aa < 20:
+        chunks = [bitops.word_slice_to_fr(dg15_words, p.aa_shift + j * 200,
+                                          200, msb_first=True)
+                  for j in range(4)]
+        chunks.append(bitops.word_slice_to_fr(dg15_words, p.aa_shift + 800,
+                                              224, msb_first=True))
+        return pos.poseidon(chunks)
+    field_size, keep = ecdsa_aa_bits(aa)
+    xy_shift = field_size - keep
+    x = bitops.word_slice_to_fr(dg15_words, p.aa_shift + xy_shift, keep,
+                                msb_first=True)
+    y = bitops.word_slice_to_fr(dg15_words, p.aa_shift + field_size
+                                + xy_shift, keep, msb_first=True)
+    return pos.poseidon([x, y])
 
 
 def dg1_commitment(p: params.CircuitParams, dg1_words, sk_identity):

@@ -1,0 +1,62 @@
+"""Batched ECDSA signature verification over the registry curves.
+
+Counterpart of ``passport_zk_circuits_tpu/ops/ecdsa.py``, plain PyTorch:
+s^-1 mod n by Fermat, u1 = s^-1 h, u2 = s^-1 r, R = u1 G (fixed-base,
+stride 8) + u2 PK (windowed, w = 4), x(R) mod n == r. As in the JAX package
+the checks are stricter than the reference circuit's: r and s in [1, n-1],
+the public key on the curve and R not at infinity. The key's coordinates
+must also lie in [0, p-1] (SEC 1 v2, 3.2.2.1): the field arithmetic takes
+canonical residues, and a key (x, y + p) is rejected rather than read as
+(x, y).
+"""
+
+from __future__ import annotations
+
+from . import bignum as bn
+from . import bitops
+from . import weierstrass as wst
+
+
+def hash_bits_to_limbs(hash_bits, kn: int):
+    """Big-endian hash bit tensor (nbits, *B) -> (kn, *B) limbs. A hash
+    wider than the order field keeps its leftmost kn * 16 bits."""
+    return bitops.bits_to_limbs(hash_bits[:kn * 16], kn, msb_first=True)
+
+
+def on_curve(c: wst.CurveCtx, x, y):
+    """y^2 == x^3 + a*x + b."""
+    xx, yy, ax = c.mul(wst._st(x, y, x), wst._st(
+        x, y, c.const_like(c.curve.a, x).expand(x.shape))).unbind(1)
+    rhs = c.add(c.mul(xx, x), c.add(ax, c.const_like(c.curve.b, x).expand(
+        x.shape)))
+    return bn.eq(yy, rhs)
+
+
+def verify(curve_name: str, pk_x, pk_y, signature, hash_bits):
+    """pk_x, pk_y: (k, B) field limbs; signature: (2*kn, B) = r || s;
+    hash_bits: (hash_len, B) big-endian bits. Returns bool (B,)."""
+    c = wst.ctx(curve_name)
+    kn = c.kn
+    if c.k != kn:
+        raise ValueError(f"{curve_name}: field and order limb counts differ")
+    r = signature[:kn]
+    s = signature[kn:2 * kn]
+    h = hash_bits_to_limbs(hash_bits, kn)
+
+    # scalar-field (mod n) arithmetic
+    s_inv = c.fn.inv(s)
+    u1, u2 = c.fn.mul(s_inv.unsqueeze(1), wst._st(c.fn.reduce(h), r)) \
+        .unbind(1)
+
+    R = wst.jac_add(c, wst.fixed_base_mul(c, u1),
+                    wst.scalar_mul_window(c, u2, pk_x, pk_y))
+    rx, _ = wst.to_affine(c, R)
+
+    ok = bn.eq(c.fn.reduce(rx), r)
+    ok = ok & ~bn.is_zero(r) & ~bn.is_zero(s)
+    n_l = c.n_limbs(r)
+    ok = ok & bn.lt(r, n_l) & bn.lt(s, n_l)
+    p_l = bn.cached_const(c.curve.p, c.k, pk_x.device, pk_x.dim())
+    ok = ok & bn.lt(pk_x, p_l) & bn.lt(pk_y, p_l)
+    ok = ok & on_curve(c, pk_x, pk_y)
+    return ok & ~wst.is_inf(R)

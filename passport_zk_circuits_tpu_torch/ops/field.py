@@ -7,8 +7,6 @@ static BN254 mu, so results are bit-equal to the JAX package.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -43,19 +41,13 @@ def batch_from_limbs(a) -> list:
 
 # -- static constants as device tensors -------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _cached_const(x: int, nlimbs: int, device: torch.device, ndim: int):
-    t = bn.to_tensor(bn.int_to_limbs(x, nlimbs), device)
-    return t.reshape((nlimbs,) + (1,) * (ndim - 1))
-
-
 def _p(like):
-    return _cached_const(P, NLIMBS, like.device, like.dim())
+    return bn.cached_const(P, NLIMBS, like.device, like.dim())
 
 
 def _mu(like):
-    return _cached_const((1 << (32 * NLIMBS)) // P, NLIMBS + 1, like.device,
-                         like.dim())
+    return bn.cached_const((1 << (32 * NLIMBS)) // P, NLIMBS + 1,
+                           like.device, like.dim())
 
 
 # -- device ops -------------------------------------------------------------

@@ -24,12 +24,10 @@ DIGEST_INFO = {
 
 def expected_em_limbs(digest_words, hash_len: int, key_bits: int):
     """EMSA-PKCS1-v1_5 encoded message as (k, *B) 16-bit limbs:
-    0x00 0x01 FF..FF 0x00 || DigestInfo || H. digest_words: (w, *B)
-    big-endian 32-bit words (SHA-1/224/256)."""
-    if hash_len in (384, 512):
-        raise NotImplementedError(
-            f"SHA-{hash_len} digests are not ported yet "
-            "(ROADMAP queue 1: Remaining hashes)")
+    0x00 0x01 FF..FF 0x00 || DigestInfo || H. digest_words: big-endian
+    digest words, (w, *B) 32-bit words for any hash, or for SHA-384/512
+    also (w, 2, *B) hi/lo pairs as ``sha2.sha384_chunks`` returns them."""
+    digest_words = flat_digest_words(digest_words, hash_len)
     n_bytes = key_bits // 8
     h_bytes = hash_len // 8
     prefix = DIGEST_INFO[hash_len]
@@ -47,6 +45,15 @@ def expected_em_limbs(digest_words, hash_len: int, key_bits: int):
     em = torch.cat([const, digest])                    # big-endian bytes
     be16 = (em[0::2] << 8) | em[1::2]                  # big-endian limbs
     return be16.flip(0)
+
+
+def flat_digest_words(digest_words, hash_len: int):
+    """(w, 2, *B) hi/lo digest pairs of SHA-384/512 -> (2w, *B) 32-bit
+    words; 32-bit word tensors pass through."""
+    if digest_words.shape[0] * 64 == hash_len:
+        return digest_words.reshape((digest_words.shape[0] * 2,)
+                                    + digest_words.shape[2:])
+    return digest_words
 
 
 def verify_pkcs1v15(signature, pubkey, mu, digest_words, hash_len: int,

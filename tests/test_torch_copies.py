@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's pure-Python modules
-(models/params, utils/poseidon_ref, babyjubjub_ref, rsa_keygen) and of
-utils/constants/poseidon_bn254.npz equal the originals: the registry field
-by field, the constants array by array, the oracles on seeded inputs."""
+(models/params, ops/curves, utils/poseidon_ref, babyjubjub_ref, rsa_keygen,
+ecdsa_ref) and of utils/constants/poseidon_bn254.npz and the six
+fixed_base_<curve>.npz tables equal the originals: the registries field by
+field, the constants file by file and array by array, the oracles on
+seeded inputs."""
 
 import dataclasses
 import pathlib
@@ -11,18 +13,25 @@ import numpy as np
 import pytest
 
 from passport_zk_circuits_tpu.models import params as jparams
+from passport_zk_circuits_tpu.ops import curves as jcurves
 from passport_zk_circuits_tpu.utils import babyjubjub_ref as jbref
+from passport_zk_circuits_tpu.utils import ecdsa_ref as jecdsa_ref
 from passport_zk_circuits_tpu.utils import poseidon_ref as jpref
 from passport_zk_circuits_tpu.utils import rsa_keygen as jkeygen
 from passport_zk_circuits_tpu_torch.models import params
+from passport_zk_circuits_tpu_torch.ops import curves
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
+from passport_zk_circuits_tpu_torch.ops import weierstrass as wst
 from passport_zk_circuits_tpu_torch.utils import babyjubjub_ref as bref
+from passport_zk_circuits_tpu_torch.utils import ecdsa_ref
 from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 from passport_zk_circuits_tpu_torch.utils import rsa_keygen
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-JAX_NPZ = (ROOT / "passport_zk_circuits_tpu" / "utils" / "constants"
-           / "poseidon_bn254.npz")
+JAX_CONST = ROOT / "passport_zk_circuits_tpu" / "utils" / "constants"
+JAX_NPZ = JAX_CONST / "poseidon_bn254.npz"
+FIXED_BASE = ("p256", "brainpoolP256r1", "brainpoolP320r1",
+              "brainpoolP384r1", "secp192r1", "secp224r1")
 
 
 def test_sig_algo_registry_field_by_field():
@@ -72,3 +81,36 @@ def test_babyjubjub_oracle_equal():
 def test_rsa_keygen_equal():
     assert rsa_keygen.gen_rsa_key(512, random.Random(33)) == \
         jkeygen.gen_rsa_key(512, random.Random(33))
+
+
+def test_curve_registry_curve_by_curve():
+    assert list(curves.CURVES) == list(jcurves.CURVES)
+    for name, c in curves.CURVES.items():
+        assert dataclasses.asdict(c) == \
+            dataclasses.asdict(jcurves.CURVES[name]), name
+    assert curves.validate_all()
+
+
+@pytest.mark.parametrize("name", FIXED_BASE)
+def test_fixed_base_npz_equal_file_and_arrays(name):
+    mine = wst.CONST_DIR / f"fixed_base_{name}.npz"
+    theirs = JAX_CONST / f"fixed_base_{name}.npz"
+    assert mine.read_bytes() == theirs.read_bytes()
+    with np.load(mine) as a, np.load(theirs) as b:
+        assert sorted(a.files) == sorted(b.files) == ["inf", "x", "y"]
+        for k in b.files:
+            assert np.array_equal(a[k], b[k]), k
+
+
+def test_ecdsa_oracle_equal():
+    for name in ("p256", "secp192r1"):
+        cv, jcv = curves.CURVES[name], jcurves.CURVES[name]
+        key = ecdsa_ref.keygen(cv, random.Random(34))
+        assert key == jecdsa_ref.keygen(jcv, random.Random(34))
+        digest = bytes(range(32))
+        sig = ecdsa_ref.sign(cv, key[0], digest, random.Random(35))
+        assert sig == jecdsa_ref.sign(jcv, key[0], digest, random.Random(35))
+        assert ecdsa_ref.verify(cv, key[1], digest, *sig) is True
+        assert jecdsa_ref.verify(jcv, key[1], digest, *sig) is True
+        assert ecdsa_ref.verify(cv, key[1], digest, sig[0], sig[1] ^ 1) == \
+            jecdsa_ref.verify(jcv, key[1], digest, sig[0], sig[1] ^ 1)

@@ -42,6 +42,22 @@ cuda_probe.run("mma_s8", "cpu")
 assert sha2.sha256_chunks(bn.to_tensor(sha2.bytes_to_words32(
     sha2.pad_message(b"abc", 512))[:, None], "cpu")).shape == (8, 1)
 assert fr.batch_from_limbs(pos.poseidon([a])) == [pref.poseidon([3]), pref.poseidon([5])]
+from passport_zk_circuits_tpu_torch.ops import bitops, ecdsa, rsapss, weierstrass as wst
+from passport_zk_circuits_tpu_torch.ops.curves import CURVES
+from passport_zk_circuits_tpu_torch.utils import ecdsa_ref
+for algo in (160, 384, 512):
+    assert sha2.sha_hash_byte_rows([a[0]], algo, (2,)).shape == (algo // 8, 2)
+cv = CURVES["secp192r1"]
+c = wst.ctx(cv.name)
+d, q = ecdsa_ref.keygen(cv, __import__("random").Random(1))
+r, s = ecdsa_ref.sign(cv, d, bytes(20), __import__("random").Random(2))
+k = c.k
+lim = lambda v: bn.to_tensor(bn.ints_to_limbs_batch([v], k), "cpu")
+ok = ecdsa.verify(cv.name, lim(q[0]), lim(q[1]), torch.cat([lim(r), lim(s)]),
+                  torch.zeros((160, 1), dtype=torch.int64))
+assert ok.tolist() == [True]
+assert wst.fixed_base_table("p256", torch.device("cpu"))[0].shape == (32, 16, 256)
+assert rsapss.emsa_pss_encode(bytes(32), 1024, bytes(32)) > 0
 bad = [m for m, v in sys.modules.items() if v is not None and
        (m.split(".")[0] in ("jax", "passport_zk_circuits_tpu"))]
 assert not bad, bad

@@ -117,13 +117,6 @@ def test_tampered_lanes_fail_and_neighbours_pass():
             [synthetic.expected_outputs(NO_AA, pp)[name] for pp in pps]
 
 
-def test_unported_families_raise():
-    ecdsa = CircuitParams.from_name(
-        "registerIdentity_20_256_3_3_336_232_0_0_0_0")
-    with pytest.raises(NotImplementedError):
-        synthetic.make_synthetic_passport(ecdsa, random.Random(0))
-
-
 @pytest.mark.slow
 def test_forward_matches_live_jax():
     import jax

@@ -1,4 +1,4 @@
-"""The port's SHA-224/256 against hashlib and the JAX package.
+"""The port's SHA-1/224/256/384/512 against hashlib and the JAX package.
 
 The JAX package's SHA tests are slow-tier on the CPU (XLA compiles of
 every SHA width), so most fast tests hold the port's plain version against
@@ -17,6 +17,7 @@ import torch
 
 from passport_zk_circuits_tpu.ops import sha2 as jsha2
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
+from passport_zk_circuits_tpu_torch.ops import bitops
 from passport_zk_circuits_tpu_torch.ops import cuda_sha2
 from passport_zk_circuits_tpu_torch.ops import sha2
 
@@ -25,11 +26,11 @@ torch.set_num_threads(1)
 rng = random.Random(2202)
 
 
-def _batch(msgs):
-    """Equal-block-count messages -> (16 nb, B) padded word tensor."""
+def _batch(msgs, block_bits=512):
+    """Equal-block-count messages -> padded 32-bit word tensor (n, B)."""
     return bn.to_tensor(np.stack(
-        [sha2.bytes_to_words32(sha2.pad_message(m, 512)) for m in msgs],
-        axis=-1), "cpu")
+        [sha2.bytes_to_words32(sha2.pad_message(m, block_bits))
+         for m in msgs], axis=-1), "cpu")
 
 
 def _digests(words):
@@ -75,9 +76,18 @@ def test_batch_dims_and_wrapper_contract():
     assert cuda_sha2.sha2_32_chunks.launches == before
     with pytest.raises(ValueError):
         cuda_sha2.sha2_32_chunks(words, 512)
-    for algo in (160, 384, 512):
-        with pytest.raises(NotImplementedError):
-            sha2.sha_hash_chunks(words, algo)
+    # the facade takes every width: SHA-1 on the same words, SHA-384/512 on
+    # 1024-bit blocks as hi/lo pairs
+    assert _digests(sha2.sha_hash_chunks(words, 160)) == \
+        [hashlib.sha1(m).digest() for m in msgs]
+    for algo in (384, 512):
+        w64 = bitops.words32_to_words64(_batch(msgs, 1024))
+        dw = sha2.sha_hash_chunks(w64, algo)
+        assert dw.shape == (algo // 64, 2, 6)
+        assert _digests(dw.reshape(algo // 32, 6)) == \
+            [hashlib.new(f"sha{algo}", m).digest() for m in msgs]
+    with pytest.raises(ValueError):
+        sha2.sha_hash_chunks(words, 257)
 
 
 @pytest.mark.parametrize("with_dg15", [False, True])
@@ -117,8 +127,9 @@ def test_many_contract():
     torch.testing.assert_close(out[1].reshape(7, 6),
                                sha2.sha_hash_chunks(words, 224),
                                rtol=0, atol=0)
+    # K1's many-message entry hashes SHA-224/256 only
     for algos in ([256, 160], [384], [512, 256]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             sha2.sha_hash_chunks_many([words] * len(algos), algos)
     with pytest.raises(ValueError):
         cuda_sha2.sha2_32_chunks_many([words] * 5, [256] * 5)
@@ -126,6 +137,50 @@ def test_many_contract():
         cuda_sha2.sha2_32_chunks_many([words, words[:, :5]], [256, 256])
     with pytest.raises(ValueError):
         cuda_sha2.sha2_32_chunks_many([words], [512])
+
+
+# the boundary lengths of tests/test_sha.py: empty, one block, the last
+# length whose padding fits the block, the first that does not, a full block
+BOUNDARY = {160: (0, 3, 55, 56, 64), 224: (0, 3, 55, 56, 64),
+            256: (0, 3, 55, 56, 64), 384: (0, 3, 111, 112, 128),
+            512: (0, 3, 111, 112, 128)}
+
+
+@pytest.mark.parametrize("algo", sorted(BOUNDARY))
+def test_every_width_matches_hashlib_on_boundary_lengths(algo):
+    block = sha2.ALGO_BITS[algo]
+    for n in BOUNDARY[algo]:
+        msgs = [bytes(rng.randrange(256) for _ in range(n)) for _ in range(3)]
+        words = _batch(msgs, block)
+        if algo in (384, 512):
+            words = bitops.words32_to_words64(words)
+        dw = sha2.sha_hash_chunks(words, algo)
+        assert dw.shape[0] == sha2.DIGEST_WORDS[algo]
+        assert _digests(dw.reshape(-1, 3)) == \
+            [sha2.sha_hash_bytes_host(m, algo) for m in msgs], (algo, n)
+
+
+@pytest.mark.parametrize("algo", sorted(BOUNDARY))
+def test_byte_rows_match_hashlib_and_jax_padding(algo):
+    """sha_hash_byte_rows, the hash of a stream built on the device (MGF1,
+    M'), on a mix of per-byte tensor rows and int constants; its padding
+    equals the JAX package's pad_byte_rows."""
+    for n in (0, 40, BOUNDARY[algo][3]):
+        rows = [torch.tensor([rng.randrange(256) for _ in range(4)])
+                if rng.random() < .7 else rng.randrange(256)
+                for _ in range(n)]
+        assert len(sha2.pad_byte_rows(rows, sha2.ALGO_BITS[algo])) == \
+            len(jsha2.pad_byte_rows(rows, sha2.ALGO_BITS[algo]))
+        ints = [r if isinstance(r, int) else 0 for r in rows]
+        assert [r for r in sha2.pad_byte_rows(ints, sha2.ALGO_BITS[algo])] \
+            == jsha2.pad_byte_rows(ints, sha2.ALGO_BITS[algo])
+        out = sha2.sha_hash_byte_rows(rows, algo, (4,))
+        assert out.shape == (algo // 8, 4)
+        for lane in range(4):
+            data = bytes(int(r[lane]) if isinstance(r, torch.Tensor) else r
+                         for r in rows)
+            assert bytes(out[:, lane].tolist()) == \
+                sha2.sha_hash_bytes_host(data, algo)
 
 
 @pytest.mark.slow
