@@ -34,13 +34,17 @@ The script
    (tolerance 0: integer arithmetic) against its plain PyTorch version on
    the same CUDA tensors, and on 8+ lanes against the Python-int oracles;
    times both, and computes the kernel's bound from this run's shapes and
-   data (K4: the live levels of three depth profiles); K1's one launch
-   beside its four-call route, with the critical-path floor of a lane's
-   rounds; K2 also at k = 256 and with an even-modulus lane, K3 also width
-   by width; the device time of one call of K1 (both routes), K6, K7, K8
+   data (K4: the live levels of three depth profiles), and the
+   critical-path floor of K1 (a lane's rounds), K6 (a lane's two team
+   products) and K8 (n steps of one chain); K1's one launch beside its
+   four-call route and its per-message entry at the RSA-PSS path's shapes
+   (MGF1's seven blocks and M'); K2 also at k = 256 and with an
+   even-modulus lane, K3 also width by width; K6 and K8 on every lane
+   against the Python ints, K6 also with a broadcast column of each edge
+   value; the device time of one call of K1 (three routes), K6, K7, K8
    and K9 from torch.profiler, each held to its kernels' names, and every
-   launch of that session to its kernel record; registers and spills of K1 and K7
-   from nvcc's -Xptxas -v (no spills);
+   launch of that session to its kernel record; registers and spills of
+   K1, K6 and K7 from nvcc's -Xptxas -v (no spills);
 5. builds flagship inputs with the port's ingest, runs
    register_identity.forward on the card, checks the four public outputs
    against the oracles, the verdicts, two tampered lanes, and that the
@@ -61,7 +65,8 @@ The script
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
    (K9 must launch, every probe must pass), and prints K7's field-muls/s;
-8. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+8. prints the floors' JSON line (models, apart from the measurements),
+   the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -189,6 +194,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_MMA_OPS_PER_S = 1979e12
 INT_OPS_PER_CLOCK_PER_SM = 64
 CARD = {}                       # int_ops_per_s, filled in by main()
+FLOORS = []     # (entry, floor_ms) of each kernel whose latency is modelled
+PROFILED = []   # (entry, fn, kernel symbols) for device_profile
 OPS_PARTIAL = 2         # a 32x32->64 partial product accumulated with its
                         # carries: mad.lo.cc + madc.hi.cc
 OPS_MONT_MUL = 128 * OPS_PARTIAL + 8 + 16   # CIOS: 64 a*b and 64 m*p
@@ -208,6 +215,24 @@ OPS_SHA_BLOCK = 64 * 15 + 48 * 10       # 64 rounds, 48 schedule words
 # the next e (IADD3), h + K + w being ready beforehand; 4 clocks each, the
 # latency of a dependent integer instruction on the SM (Volta to Hopper).
 SHA_ROUND_CHAIN_CLOCKS = 3 * 4
+# A product of a lane on a team of threads (frs::Slice::mul: K6, K7 and K8's
+# modmul_mont32) is 8 word steps, whatever the team's W. A step's dependent
+# chain: IMAD.WIDE (t0 + a_i b_0), IMAD (m = t0 (-P^-1)), the shuffle that
+# brings m to the team, IMAD.WIDE (+ m p_c) and IADD3 into the column below.
+# Then the carries (a shuffle, two ballots, an add) and the final subtract
+# (two ballots, a select). Each is taken at 4 clocks, a dependent integer
+# instruction's latency; a shuffle's and a ballot's are longer (not measured
+# here), so the model is a floor.
+TEAM_STEP_CHAIN_CLOCKS = 5 * 4
+TEAM_CARRY_CLOCKS = 4 * 4
+TEAM_SUBTRACT_CLOCKS = 3 * 4
+# One step of a K8 body's chain: the elementwise bodies' limb, IMAD (x c + 1)
+# then LOP3 (& 0xFFFF), or IADD (x + (c >> 1), the shift hoisted) then LOP3,
+# 4 clocks each; modmul_mont32's team product without its final subtract
+# (frs::Slice::mul_lazy). The TPU's 16-bit bodies have no model.
+LOOP_STEP_CHAIN_CLOCKS = {
+    "u32_mul_add": 2 * 4, "i32_mul_add": 2 * 4, "mask_shift_add": 2 * 4,
+    "modmul_mont32": 8 * TEAM_STEP_CHAIN_CLOCKS + TEAM_CARRY_CLOCKS}
 # BabyJubJub in extended coordinates: the addition add-2008-hwcd, 9
 # products, the products by a and by d, 7 additions; the doubling
 # dbl-2008-hwcd, 4 products, 4 squarings, the product by a, 7 additions; the
@@ -322,6 +347,22 @@ def sha_floor_ms(nb):
     return 64 * nb * SHA_ROUND_CHAIN_CLOCKS / CARD["sm_hz"] * 1e3
 
 
+def fr_mul_floor_ms():
+    """The critical-path floor of a K6 lane: its two dependent team
+    products, mont(a, R^2) then mont(b, a R), each 8 team steps, its
+    carries and its final subtract."""
+    product = (8 * TEAM_STEP_CHAIN_CLOCKS + TEAM_CARRY_CLOCKS
+               + TEAM_SUBTRACT_CLOCKS)
+    return 2 * product / CARD["sm_hz"] * 1e3
+
+
+def loop_floor_ms(body, n):
+    """The critical-path floor of K8's body at n steps: n steps of one
+    chain, LOOP_STEP_CHAIN_CLOCKS each; None for a body with no model."""
+    clocks = LOOP_STEP_CHAIN_CLOCKS.get(body)
+    return None if clocks is None else n * clocks / CARD["sm_hz"] * 1e3
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -360,14 +401,17 @@ def max_abs_err(k_out, p_out):
 
 
 def compare(name, kernel_fn, plain_fn, nbytes, int_ops, reps=10,
-            mma_ops=0, plain_once=False, plain_lanes=None):
+            mma_ops=0, plain_once=False, plain_lanes=None, floor_ms=None):
     """Run kernel and plain version on the same CUDA inputs; they must be
     bit-equal. The plain version is timed after a warm-up run, or, with
     plain_once (plain versions that take seconds), on the one run that is
     compared. With plain_lanes = m, plain_fn computes the batch's first m
     lanes only (the batch is every output's last dimension) and the
-    kernel's outputs are compared on those. Returns (kernel outputs, JSON
-    entry without launches)."""
+    kernel's outputs are compared on those. floor_ms: the kernel's
+    critical-path floor, a latency model computed from this run's clock and
+    shapes like the bound (None where none is modelled); a model, not a
+    measurement, so it goes to FLOORS and not into the entry. Returns
+    (kernel outputs, JSON entry without launches)."""
     k_out = kernel_fn()
     p_out, plain_ms = timed_once(plain_fn)
     if isinstance(k_out, torch.Tensor):
@@ -380,31 +424,35 @@ def compare(name, kernel_fn, plain_fn, nbytes, int_ops, reps=10,
         plain_ms = cuda_ms(plain_fn, 1)
     _, source, replaces = KERNELS[name]
     bound_ms, bound_by = bound(nbytes, int_ops, mma_ops)
+    floor = "" if floor_ms is None else f", floor {floor_ms:.6f} ms"
     print(f"  {name}: bit-equal{on}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms{on}, bound {bound_ms:.6f} ms ({bound_by})")
+          f"{plain_ms:.2f} ms{on}, bound {bound_ms:.6f} ms ({bound_by})"
+          f"{floor}")
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None}
     if plain_lanes is not None:
         entry["plain_lanes"] = plain_lanes
+    if floor_ms is not None:
+        FLOORS.append((entry, floor_ms))
     return k_out, entry
 
 
 def to_profile(entry, fn, symbols):
     """Mark entry's kernel for device_profile: one call of fn launches the
     kernels named symbols, in that order."""
-    entry["_profile"] = (fn, list(symbols))
+    PROFILED.append((entry, fn, list(symbols)))
 
 
 def kernel_symbol(name):
     """A profiler kernel name without return type, template arguments and
-    parameters: 'void loop_kernel<loopb::U32MulAdd>(long const*, ...)' ->
-    'loop_kernel'."""
+    parameters: 'void loop_limb_kernel<loopb::U32MulAdd>(long const*, ...)'
+    -> 'loop_limb_kernel'."""
     return name.split("(")[0].removeprefix("void ").split("<")[0]
 
 
-def device_profile(forwards, entries):
+def device_profile(forwards):
     """One torch.profiler session (CPU and CUDA activities; a session after
     another lost its first kernels on the card): each forward of forwards
     ((label, fn) pairs) inside a record_function range of its own, then
@@ -423,7 +471,6 @@ def device_profile(forwards, entries):
     clock; the device's idle share is 1 - device / wall) and the count and
     device us of each hand-written kernel in it. Memory copies and sets
     are not counted as kernels."""
-    marked = [e for e in entries if "_profile" in e]
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -435,8 +482,8 @@ def device_profile(forwards, entries):
                 fn()
                 torch.cuda.synchronize()
                 wall_ms[label] = (time.perf_counter() - t0) * 1e3
-        for e in marked + marked:
-            e["_profile"][0]()
+        for _, fn, _ in PROFILED + PROFILED:
+            fn()
             torch.cuda.synchronize()
     events = prof.events()
     cpu = [ev for ev in events
@@ -455,7 +502,7 @@ def device_profile(forwards, entries):
             - {ev.id for ev in kernels})
     check(not lost, f"profiler lost the kernel records of {len(lost)} "
           "launch(es)")
-    expected = [s for e in marked for s in e["_profile"][1]]
+    expected = [s for _, _, symbols in PROFILED for s in symbols]
     n_short = len(expected)
     check(len(kernels) > 2 * n_short,
           f"profiler saw {len(kernels)} kernels, not the forwards' and "
@@ -467,8 +514,7 @@ def device_profile(forwards, entries):
         names = [kernel_symbol(ev.name) for ev in got]
         check(names == expected, f"profiler's short kernels {names}, not "
               f"{expected}")
-    for e in marked:
-        _, symbols = e.pop("_profile")
+    for e, _, symbols in PROFILED:
         n = len(symbols)
         e["profiler_device_us"] = [ev.time_range.elapsed_us()
                                    for ev in short[:n]]
@@ -513,27 +559,37 @@ def phase_sha(dev, rng):
     many-message launch (sha2_32_chunks_many) timed beside the route of one
     launch a message (sha2_32_chunks, four calls), both against their plain
     versions and hashlib; then SA under SHA-224 (SIG_ALGO 24) in the
-    many-message entry and alone, and a list of three (no dg15)."""
+    many-message entry and alone, and a list of three (no dg15). Then the
+    per-message entry alone at the RSA-PSS path's shapes, as
+    sha2.sha_hash_byte_rows calls it there: MGF1's seven blocks (nb = 1)
+    and M' (nb = 2), one launch each."""
+    def messages(nb):
+        ms = [bytes(rng.randrange(256) for _ in range(
+            64 * nb - 9 - rng.randrange(50))) for _ in range(BATCH)]
+        return ms, bn.to_tensor(np.stack(
+            [sha2.bytes_to_words32(sha2.pad_message(m, 512)) for m in ms],
+            axis=-1), dev)
+
     msgs, words = {}, {}
     for nb in (2, 3, 4):
-        msgs[nb] = [bytes(rng.randrange(256) for _ in range(
-            64 * nb - 9 - rng.randrange(50))) for _ in range(BATCH)]
-        words[nb] = bn.to_tensor(np.stack(
-            [sha2.bytes_to_words32(sha2.pad_message(m, 512))
-             for m in msgs[nb]], axis=-1), dev)
+        msgs[nb], words[nb] = messages(nb)
         check(bool((words[nb] >= 1 << 31).any()), "no word >= 2^31")
     nbs = (2, 3, 4, 2)
     step = [words[nb] for nb in nbs]
     algos = [256] * 4
     work = dict(nbytes=8 * sum(w.numel() + 8 * BATCH for w in step),
                 int_ops=sum(nbs) * OPS_SHA_BLOCK * BATCH)
+    # one launch: its longest lane; launches on one stream run one after
+    # another, so theirs add up
     outs, many = compare(
         "sha2_32_chunks_many",
         lambda: cuda_sha2.sha2_32_chunks_many(step, algos),
-        lambda: cuda_sha2.sha2_32_chunks_many_plain(step, algos), **work)
+        lambda: cuda_sha2.sha2_32_chunks_many_plain(step, algos),
+        floor_ms=sha_floor_ms(max(nbs)), **work)
     four_outs, four = compare(
         "sha2_32_chunks", lambda: [cuda_sha2.sha2_32_chunks(w) for w in step],
-        lambda: [cuda_sha2.sha2_32_chunks_plain(w) for w in step], **work)
+        lambda: [cuda_sha2.sha2_32_chunks_plain(w) for w in step],
+        floor_ms=sha_floor_ms(sum(nbs)), **work)
     check(all(torch.equal(a, b) for a, b in zip(outs, four_outs)),
           "the two K1 routes differ")
     for nb, digest in zip(nbs, outs):
@@ -557,19 +613,40 @@ def phase_sha(dev, rng):
         cuda_sha2.sha2_32_chunks_many(three, [256, 256, 224]),
         cuda_sha2.sha2_32_chunks_many_plain(three, [256, 256, 224]))),
         "sha2_32_chunks_many, three messages: kernel != plain")
-    floor = sha_floor_ms(max(nbs))
     to_profile(many, lambda: cuda_sha2.sha2_32_chunks_many(step, algos),
                ["sha256_many_kernel"])
     to_profile(four, lambda: [cuda_sha2.sha2_32_chunks(w) for w in step],
                ["sha256_kernel"] * len(step))
-    # a model of the chain's latency, not a measurement: printed, kept out
-    # of the kernels line
+    # a model of the chain's latency, not a measurement
     print(f"  K1 critical-path floor (a lane's {64 * max(nbs)} rounds x "
-          f"{SHA_ROUND_CHAIN_CLOCKS} clocks): {floor:.6f} ms")
+          f"{SHA_ROUND_CHAIN_CLOCKS} clocks): {sha_floor_ms(max(nbs)):.6f} "
+          f"ms; the four launches' {64 * sum(nbs)} rounds: "
+          f"{sha_floor_ms(sum(nbs)):.6f} ms")
+    print("  K1's per-message entry at the RSA-PSS path's shapes (MGF1 "
+          "7 x nb=1, M' nb=2):")
+    mgf = [messages(1) for _ in range(7)]
+    pss_msgs = [m for m, _ in mgf] + [msgs[2]]
+    pss_words = [w for _, w in mgf] + [words[2]]
+    pss_outs, pss = compare(
+        "sha2_32_chunks",
+        lambda: [cuda_sha2.sha2_32_chunks(w) for w in pss_words],
+        lambda: [cuda_sha2.sha2_32_chunks_plain(w) for w in pss_words],
+        nbytes=8 * sum(w.numel() + 8 * BATCH for w in pss_words),
+        int_ops=9 * OPS_SHA_BLOCK * BATCH, floor_ms=sha_floor_ms(7 + 2))
+    for ms, digest in zip(pss_msgs, pss_outs):
+        for lane in range(0, BATCH, BATCH // 8):
+            check(words_to_bytes(digest[:, lane].tolist()) ==
+                  sha2.sha_hash_bytes_host(ms[lane], 256),
+                  f"sha256 PSS-path message, lane {lane} != hashlib")
+    to_profile(pss, lambda: [cuda_sha2.sha2_32_chunks(w) for w in pss_words],
+               ["sha256_kernel"] * len(pss_words))
     many["shape"] = ("SHA-256, B=1024, the step's four messages nb=2,3,4,2 "
                      "in one launch")
     four["shape"] = ("SHA-256, B=1024, the same four messages, one launch "
                      "each (off the step)")
+    pss["shape"] = ("SHA-256, B=1024, the RSA-PSS path's eight messages, "
+                    "MGF1 7 x nb=1 and M' nb=2, one launch each")
+    four["pss_path"] = pss
     return [many, four]
 
 
@@ -809,24 +886,30 @@ def _edge_lanes(dev, rng):
 
 
 def phase_field(dev, rng):
-    """K6 on (16, B) x (16, B) with edge lanes, and with a broadcast
-    (16, 1) column; K7 at n = 256 (the field-muls/s shape), n = 0 (a
-    unchanged) and n = 5."""
+    """K6 on (16, B) x (16, B) with edge lanes on both sides, and with a
+    broadcast (16, 1) column of each edge value and of a random one, on
+    every lane against its plain version and Python ints; K7 at n = 256
+    (the field-muls/s shape), n = 0 (a unchanged) and n = 5."""
     xs, a = _edge_lanes(dev, rng)
     ys, b = _edge_lanes(dev, rng)
     ys, b = ys[::-1], b.flip(1).contiguous()
-    # two products a lane: mont(to_mont(a), b) = a*b mod P for any
-    # b < 2^256, since a*R mod P < P
+    # two products a lane: mont(a, R^2) = a*R mod P, then mont(b, a*R) =
+    # a*b mod P, for any a, b < 2^256
     outs, e6 = compare("mul", lambda: cuda_field.mul(a, b),
                        lambda: cuda_field.mul_plain(a, b),
                        nbytes=8 * 3 * 16 * BATCH,
-                       int_ops=2 * OPS_MONT_MUL * BATCH)
+                       int_ops=2 * OPS_MONT_MUL * BATCH,
+                       floor_ms=fr_mul_floor_ms())
+    check(fr.batch_from_limbs(outs[0]) ==
+          [x * y % fr.P for x, y in zip(xs, ys)], "K6 != Python ints")
+    for y in xs[:5] + [ys[5]]:
+        c = bn.to_tensor(bn.ints_to_limbs_batch([y], 16), dev)
+        out = cuda_field.mul(a, c)
+        check(torch.equal(out, cuda_field.mul_plain(a, c)),
+              f"K6 broadcast {y:#x} != plain")
+        check(fr.batch_from_limbs(out) == [x * y % fr.P for x in xs],
+              f"K6 broadcast {y:#x} != Python ints")
     lanes = list(range(5)) + list(range(5, BATCH, BATCH // 8))
-    check(fr.batch_from_limbs(outs[0][:, lanes]) ==
-          [xs[i] * ys[i] % fr.P for i in lanes], "K6 != Python ints")
-    c = b[:, 5:6]
-    check(torch.equal(cuda_field.mul(a, c), cuda_field.mul_plain(a, c)),
-          "K6 broadcast != plain")
     c = bn.to_tensor(fr.to_limbs(microbench_field.C)[:, None], dev)
     cv = microbench_field.C
     # n products a lane, x kept out of Montgomery form against
@@ -835,7 +918,8 @@ def phase_field(dev, rng):
         "mul_chain", lambda: cuda_field.mul_chain(a, c, SCAN_LEN),
         lambda: cuda_field.mul_chain_plain(a, c, SCAN_LEN),
         nbytes=8 * (2 * 16 * BATCH + 16),
-        int_ops=(SCAN_LEN * BATCH + 1) * OPS_MONT_MUL)
+        int_ops=(SCAN_LEN * BATCH + 1) * OPS_MONT_MUL,
+        floor_ms=loop_floor_ms("modmul_mont32", SCAN_LEN))  # K8's chain
     check(fr.batch_from_limbs(outs[0][:, lanes]) ==
           [xs[i] * pow(cv, SCAN_LEN, fr.P) % fr.P for i in lanes],
           "K7 n=256 != Python ints")
@@ -855,23 +939,22 @@ def phase_field(dev, rng):
 
 
 def phase_loop(dev, rng):
-    """K8: every body at B = 1024 against its plain version and on 8 lanes
-    against Python ints; timed on the field-muls/s path's shape, the raw
-    u32 chain of 256 x 16 steps."""
+    """K8: every body at B = 1024 against its plain version and on every
+    lane against Python ints; timed on the field-muls/s path's shape, the
+    raw u32 chain of 256 x 16 steps."""
     a = bn.to_tensor(np.array([[rng.randrange(1 << 16) for _ in range(BATCH)]
                                for _ in range(16)]), dev)
     c = bn.to_tensor(np.array([[rng.randrange(1, 1 << 16)
                                 for _ in range(BATCH)] for _ in range(16)]),
                      dev)
-    lanes = list(range(0, BATCH, BATCH // 8))
-    a_ints = bn.limbs_to_ints_batch(a[:, lanes])
-    c_ints = bn.limbs_to_ints_batch(c[:, lanes])
+    a_ints = bn.limbs_to_ints_batch(a)
+    c_ints = bn.limbs_to_ints_batch(c)
     n = 64
     for body in cuda_loop.BODIES:
         out = cuda_loop.loop(body, a, c, n)
         check(torch.equal(out, cuda_loop.loop_plain(body, a, c, n)),
               f"K8 {body}: kernel != plain")
-        check(bn.limbs_to_ints_batch(out[:, lanes]) ==
+        check(bn.limbs_to_ints_batch(out) ==
               [cuda_loop.body_ints(body, x, y, n)
                for x, y in zip(a_ints, c_ints)],
               f"K8 {body} != Python ints")
@@ -882,9 +965,10 @@ def phase_loop(dev, rng):
                        lambda: cuda_loop.loop_plain("u32_mul_add", a, raw_c,
                                                     n),
                        nbytes=8 * 3 * 16 * BATCH,
-                       int_ops=2 * n * 16 * BATCH, reps=3)
+                       int_ops=2 * n * 16 * BATCH, reps=3,
+                       floor_ms=loop_floor_ms("u32_mul_add", n))
     to_profile(entry, lambda: cuda_loop.loop("u32_mul_add", a, raw_c, n),
-               ["loop_kernel"])
+               ["loop_limb_kernel"])
     entry["shape"] = "u32_mul_add, n=4096, (16, 1024)"
     return entry
 
@@ -1164,11 +1248,11 @@ def field_path(dev, entries):
 
 
 def ptxas_check():
-    """Print the registers and spills nvcc's -Xptxas -v gave K1's and K7's
-    kernels in this build (build.log); they must not spill."""
+    """Print the registers and spills nvcc's -Xptxas -v gave K1's, K6's and
+    K7's kernels in this build (build.log); they must not spill."""
     report = cuda_build.ptxas_report(
         (cuda_build.BUILD_DIR / "build.log").read_text())
-    for name in ("sha256_many_kernel", "sha256_kernel",
+    for name in ("sha256_many_kernel", "sha256_kernel", "fr_mul_kernel",
                  "fr_mul_chain_kernel"):
         check(name in report, f"no -Xptxas -v entry for {name}")
         regs, st, ld = report[name]
@@ -1239,7 +1323,7 @@ def main():
         (path, lambda q=q, x=x: ri.forward(q, x))
         for path, (q, x, _) in runs.items()]
     t0 = time.perf_counter()
-    prof = device_profile(forwards, entries)
+    prof = device_profile(forwards)
     print(f"  the profiler's session and its events: "
           f"{time.perf_counter() - t0:.1f} s (host)")
     for label, st in prof.items():
@@ -1270,6 +1354,10 @@ def main():
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the "
           "build included (host clock)")
 
+    # the floors are models, not measurements: a line of their own
+    print(json.dumps({"floors": [
+        {"name": e["name"], "shape": e.get("shape"), "floor_ms": f}
+        for e, f in FLOORS]}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,11 +17,12 @@
 // ballots of the team (wp::Group::carry_in). W = 1 is the arithmetic of
 // fr_team.cuh's team of eight, one word a thread. With W = 8 (a team of
 // one) every operation is fr_bn254.cuh's own. K3 ships W = 2 (a team of
-// four) up to t = 8, and K7 (mul_chain_lane, below) runs its chain on one
-// team a lane (tools/kernel_designs times every W for both).
+// four) up to t = 8; K6 (mul_lane, below) and K7 (mul_chain_lane) run a
+// lane on one team (tools/kernel_designs times every W for all three).
 //
 // A host build runs a group's threads itself through warp.cuh's exchange;
-// tests/torch_csrc_host_check.cc runs K3's and K7's lane bodies that way.
+// tests/torch_csrc_host_check.cc runs K3's, K6's and K7's lane bodies that
+// way.
 #pragma once
 
 #include "fr_bn254.cuh"
@@ -269,6 +270,33 @@ PZK_HD Slice<W, GL> make_slice(const wp::Group<GL>& g) {
 #pragma unroll
   for (int w = 0; w < W; ++w) s.p[w] = wp::word(p, s.q * W + w);
   return s;
+}
+
+// The words a thread of K7's team: W = 2, a team of four, is the fastest
+// of W = 1, 2, 4, 8 (tools/kernel_designs --kernel k7). K8's modmul_mont32
+// body runs K7's lane body at the same W.
+constexpr int CHAIN_W = 2;
+
+// K6's lane body: out = a * b mod P, canonical, for lane `lane` of B, on a
+// team of 8 / W threads (the group is the team). a, out: (16, B) limbs; b:
+// (16, B), or one (16, 1) column that every lane reads when b_bcast. Any a,
+// b below 2^256 is taken, in two products: x = mul(a, R^2) = a R mod P,
+// then mul(b, x) = a b mod P. Each takes its unreduced value (a, then b)
+// as the word-by-word operand and a canonical one (R^2 mod P, then x) as
+// the column operand, as Slice::mul asks (a < 2^256, b < P): every partial
+// sum of the CIOS then stays below b + P < 2P, so the one final subtract of
+// each product leaves it canonical. A lane past the batch runs on lane B - 1
+// and stores nothing.
+template <int W>
+PZK_HD void mul_lane(const wp::Group<fr::NW / W>& g, const int64_t* a,
+                     const int64_t* b, int b_bcast, int64_t* out, long lane,
+                     long B) {
+  const Slice<W, fr::NW / W> f = make_slice<W>(g);
+  const long mine = lane < B ? lane : B - 1;
+  const typename Slice<W, fr::NW / W>::Fe x = f.to_mont(f.load(a + mine, B));
+  const typename Slice<W, fr::NW / W>::Fe y =
+      f.mul(f.load(b + (b_bcast ? 0 : mine), b_bcast ? 1 : B), x);
+  if (lane < B) f.store(y, out + lane, B);
 }
 
 // K7's lane body: n dependent steps x <- x * c mod P from x = a, for lane

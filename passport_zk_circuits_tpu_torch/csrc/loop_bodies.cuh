@@ -12,8 +12,13 @@
 // (ModmulMont32, fr_bn254.cuh, what the port's kernels use).
 //
 // A body is a struct with a state type S, enter (limbs -> S, applied to x
-// and to c once), step (S, S) -> S and leave (S -> limbs).
+// and to c once), step (S, S) -> S and leave (S -> limbs). The elementwise
+// bodies (PerLimb) also give the step of one limb, limb (T, T) -> T: their
+// 16 limbs are 16 independent chains, and K8 runs each on a thread of its
+// own (limb_thread).
 #pragma once
+
+#include <type_traits>
 
 #include "fr_bn254.cuh"
 
@@ -21,6 +26,7 @@ namespace loopb {
 
 constexpr int NL = 16;
 constexpr uint32_t MASK = 0xFFFFu;
+constexpr int LIMB_BLOCK = 128;   // K8's threads a block for PerLimb bodies
 
 #define PZK_P16 0x0001u, 0xf000u, 0xf593u, 0x43e1u, 0x7091u, 0x79b9u, \
                 0xe848u, 0x2833u, 0x585du, 0x8181u, 0x45b6u, 0xb850u, \
@@ -110,27 +116,17 @@ struct Identity {
   PZK_HD static L16 leave(const S& x) { return x; }
 };
 
-// (x * c + 1) & 0xFFFF per limb, u32
-struct U32MulAdd : Identity<L16> {
-  using S = L16;
-  PZK_HD static S step(const S& x, const S& c) {
-    S r;
-#pragma unroll
-    for (int i = 0; i < NL; ++i) r.v[i] = (x.v[i] * c.v[i] + 1u) & MASK;
-    return r;
-  }
-};
-
-// The same in int32 lanes. The product can pass 2^31, and signed overflow
-// is undefined in C++, so it is taken in unsigned arithmetic: the low 16
-// bits are those of the wrapped int32 product.
-struct I32MulAdd {
+// A body whose step works on each limb alone, Body::limb(x, c) on limbs
+// held as T
+template <class Body, class T>
+struct PerLimb {
+  using Limb = T;
   struct S {
-    int32_t v[NL];
+    T v[NL];
   };
   PZK_HD static S enter(const L16& x) {
     S r;
-    for (int i = 0; i < NL; ++i) r.v[i] = (int32_t)x.v[i];
+    for (int i = 0; i < NL; ++i) r.v[i] = (T)x.v[i];
     return r;
   }
   PZK_HD static L16 leave(const S& x) {
@@ -141,21 +137,44 @@ struct I32MulAdd {
   PZK_HD static S step(const S& x, const S& c) {
     S r;
 #pragma unroll
-    for (int i = 0; i < NL; ++i)
-      r.v[i] = (int32_t)(((uint32_t)x.v[i] * (uint32_t)c.v[i] + 1u) & MASK);
+    for (int i = 0; i < NL; ++i) r.v[i] = Body::limb(x.v[i], c.v[i]);
     return r;
   }
 };
 
+// whether Body is a PerLimb body
+template <class Body, class = void>
+constexpr bool per_limb = false;
+template <class Body>
+constexpr bool per_limb<Body, std::void_t<typename Body::Limb>> = true;
+
+// whether K8 runs Body's chain as K7's team lane body (a team_chain tag)
+template <class Body, class = void>
+constexpr bool team_chain = false;
+template <class Body>
+constexpr bool team_chain<Body, std::void_t<decltype(Body::team_chain)>> =
+    Body::team_chain;
+
+// (x * c + 1) & 0xFFFF per limb, u32
+struct U32MulAdd : PerLimb<U32MulAdd, uint32_t> {
+  PZK_HD static uint32_t limb(uint32_t x, uint32_t c) {
+    return (x * c + 1u) & MASK;
+  }
+};
+
+// The same in int32 lanes. The product can pass 2^31, and signed overflow
+// is undefined in C++, so it is taken in unsigned arithmetic: the low 16
+// bits are those of the wrapped int32 product.
+struct I32MulAdd : PerLimb<I32MulAdd, int32_t> {
+  PZK_HD static int32_t limb(int32_t x, int32_t c) {
+    return (int32_t)(((uint32_t)x * (uint32_t)c + 1u) & MASK);
+  }
+};
+
 // ((x & 0xFFFF) + (c >> 1)) & 0xFFFF per limb
-struct MaskShiftAdd : Identity<L16> {
-  using S = L16;
-  PZK_HD static S step(const S& x, const S& c) {
-    S r;
-#pragma unroll
-    for (int i = 0; i < NL; ++i)
-      r.v[i] = ((x.v[i] & MASK) + (c.v[i] >> 1)) & MASK;
-    return r;
+struct MaskShiftAdd : PerLimb<MaskShiftAdd, uint32_t> {
+  PZK_HD static uint32_t limb(uint32_t x, uint32_t c) {
+    return ((x & MASK) + (c >> 1)) & MASK;
   }
 };
 
@@ -180,8 +199,12 @@ struct ModmulBarrett16 : Identity<L16> {
 };
 
 // (x * c) mod P, the card's formulation: CIOS Montgomery on 32-bit words,
-// into Montgomery form once at entry and out once at exit
+// into Montgomery form once at entry and out once at exit. Host-only: its
+// team_chain tag sends K8's card launch to K7's team lane body
+// (frs::mul_chain_lane), which computes the same chain; the host tests
+// hold that body and this one to the same results.
 struct ModmulMont32 {
+  static constexpr bool team_chain = true;
   using S = fr::Fe;
   PZK_HD static S enter(const L16& x) {
     fr::Fe w;
@@ -223,6 +246,35 @@ PZK_HD L16 run(const L16& a, const L16& c, int n_iter) {
   const typename Body::S k = Body::enter(c);
   for (int i = 0; i < n_iter; ++i) x = Body::step(x, k);
   return Body::leave(x);
+}
+
+// An empty asm that may change x: the compiler cannot see through a chain
+// of steps and replace it by its closed form (x + n * k for
+// mask_shift_add), which would time nothing. It emits no instruction.
+PZK_HD void opaque(uint32_t& x) { asm volatile("" : "+r"(x)); }
+PZK_HD void opaque(int32_t& x) { asm volatile("" : "+r"(x)); }
+PZK_HD void opaque(L16& s) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) opaque(s.v[i]);
+}
+
+// K8's thread of a PerLimb body: thread idx of a launch of at least NL * B
+// threads carries element idx of the (16, B) layout, limb idx / B of lane
+// idx % B, through its n_iter steps; a thread past the last element stores
+// nothing. Neighbouring threads take neighbouring lanes of one limb, so a
+// warp's loads and stores are 256 contiguous bytes.
+template <class Body>
+PZK_HD void limb_thread(const int64_t* a, const int64_t* c, int64_t* out,
+                        int n_iter, long idx, long B) {
+  using T = typename Body::Limb;
+  if (idx >= NL * B) return;
+  T x = (T)(uint32_t)a[idx];
+  const T k = (T)(uint32_t)c[idx];
+  for (int i = 0; i < n_iter; ++i) {
+    x = Body::limb(x, k);
+    opaque(x);
+  }
+  out[idx] = (uint32_t)x;
 }
 
 }  // namespace loopb

@@ -5,12 +5,13 @@ Replace ``mul`` and ``mul_chain`` of
 ``passport_zk_circuits_tpu/ops/pallas_field.py``. Operands are (16, B)
 16-bit limbs as int64, batch last; ``b`` / ``c`` may be one (16, 1) column
 that every lane uses (the kernel reads it with stride 0, as ``pf.mul``
-broadcasts it). Inputs need not be below P: the kernels convert both
-operands to Montgomery form first, so the result is (a·b) mod P for any
-a, b < 2^256, as the JAX package's. K7 is the kernel behind the
-field-muls/s metric: n dependent CIOS products per lane in registers, each
-lane's chain on a team of threads (csrc/fr_slice.cuh), so at B = 1024 its
-time is the chain's latency.
+broadcasts it). Inputs need not be below P: a Montgomery product takes
+one operand as it is, below 2^256, so the result is (a·b) mod P for any
+a, b < 2^256, as the JAX package's. Both kernels run each lane on a team
+of threads (csrc/fr_slice.cuh): K6 in two CIOS products, mont(a, R^2) then
+mont(b, a·R); K7, the kernel behind the field-muls/s metric, both operands
+into Montgomery form, then n dependent products in registers, so at
+B = 1024 its time is the chain's latency.
 """
 
 from __future__ import annotations

@@ -7,9 +7,13 @@ numbers. Every body works on (16, B) 16-bit limbs, batch last, as int64;
 each has its plain PyTorch step here. The TPU-only MXU bodies have no
 counterpart; ``modmul_barrett16`` (the TPU's VPU formulation) and
 ``modmul_mont32`` (the card's, as in ``csrc/fr_bn254.cuh``) stand in for
-them and are held against the canonical (x·c) mod P. The kernel runs one
-dependent chain per lane in registers: bound by integer instruction
-latency and issue, not by its few hundred bytes per lane.
+them and are held against the canonical (x·c) mod P. A body's time is
+its dependent chain's latency, not its few hundred bytes per lane, so the
+kernel maps each body to the card by how it depends on itself: the
+elementwise bodies (``PER_LIMB``: 16 independent chains a lane) one thread
+a (limb, lane), ``modmul_mont32`` a lane on a team of threads (K7's lane
+body), the TPU's 16-bit ``school``, ``modmul_barrett16`` and
+``barrett_only`` one lane a thread.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ PLAIN_STEPS = {
     "barrett_only": lambda x, c: fr.reduce_overflowed(torch.cat([x, x])),
 }
 BODIES = tuple(PLAIN_STEPS)
+# the bodies whose limbs are independent chains (loopb::PerLimb)
+PER_LIMB = ("u32_mul_add", "i32_mul_add", "mask_shift_add")
 
 
 def _check(body, a, c, n_iter):
@@ -84,7 +90,7 @@ loop.launches = 0
 
 def body_ints(body: str, x: int, c: int, n: int) -> int:
     """Python-int value of n steps of a body on one lane (the oracle)."""
-    if body in ("u32_mul_add", "i32_mul_add", "mask_shift_add"):
+    if body in PER_LIMB:
         xs = [(x >> (16 * i)) & MASK for i in range(16)]
         cs = [(c >> (16 * i)) & MASK for i in range(16)]
         for _ in range(n):

@@ -2,7 +2,7 @@
 card, B = 1024 by default.
 
     python -m passport_zk_circuits_tpu_torch.tools.kernel_designs \\
-        --kernel k3|k7 [--batch 1024] [--scan-len 256]
+        --kernel k3|k6|k7 [--batch 1024] [--scan-len 256]
 
 K3, the Poseidon permutation, at the flagship step's widths t = 2, 3, 4, 6:
 
@@ -15,13 +15,28 @@ K3, the Poseidon permutation, at the flagship step's widths t = 2, 3, 4, 6:
   product), for every W whose lane fits a warp. The shipped kernel is split
   W = 2 up to t = 8.
 
+K6, one Fr product a lane, on (16, B) x (16, B) random 256-bit operands
+(taken unreduced):
+
+- team W: each lane's two products, mont(a, R^2) then mont(b, a R), on a
+  team of 8 / W threads, W words a thread (frs::mul_lane, the shipped
+  body), W = 1, 2, 4 and 8. The shipped kernel (csrc/field.cu) runs
+  W = kMulW;
+- thread, 4 products: one lane a thread, both operands into Montgomery
+  form, their product, and out of it (fr_bn254.cuh), the design before
+  the team.
+
+A K6 launch takes a few us, which CUDA events around launches through
+ctypes measure as the host's time to issue them, so K6's designs are also
+timed by their kernels' device time in one torch.profiler session.
+
 K7, the Fr mul chain, at n = --scan-len products on the field-muls/s
 path's inputs (tools/microbench_field.make_inputs: a (16, 1) column c):
 
 - team W: each lane's chain on a team of 8 / W threads, W words a thread
   (frs::mul_chain_lane, the shipped body), W = 1, 2, 4 and 8 (W = 8 is one
   thread a lane with fr_bn254.cuh's product). The shipped kernel
-  (csrc/field.cu) runs W = kChainW.
+  (csrc/field.cu) runs W = frs::CHAIN_W.
 
 The designs' source is compiled by nvcc into ``_build/kernel_designs/``,
 and each design kernel's registers and spills are printed from
@@ -56,6 +71,7 @@ K3_DESIGNS = ((0, "team"), (1, "split W=1"), (2, "split W=2"),
               (4, "split W=4"), (8, "split W=8"))
 K7_DESIGNS = ((1, "team W=1"), (2, "team W=2"), (4, "team W=4"),
               (8, "team W=8"))
+K6_DESIGNS = ((0, "thread, 4 products"),) + K7_DESIGNS
 K3_SRC = r"""
 #include <cuda_runtime.h>
 #include "fr_team.cuh"
@@ -162,10 +178,55 @@ extern "C" int k7_design_launch(int W, const int64_t* a, const int64_t* c,
   return (int)cudaGetLastError();
 }
 """
+K6_SRC = r"""
+#include <cuda_runtime.h>
+#include "fr_slice.cuh"
+template <int W>
+__global__ void __launch_bounds__(32) k6_team(
+    const int64_t* __restrict__ a, const int64_t* __restrict__ b,
+    int b_bcast, int64_t* __restrict__ out, int B) {
+  constexpr int TW = fr::NW / W;
+  const long lane = ((long)blockIdx.x * blockDim.x + threadIdx.x) / TW;
+  frs::mul_lane<W>(wp::device_group<TW>(), a, b, b_bcast, out, lane, B);
+}
+__global__ void k6_thread4(const int64_t* __restrict__ a,
+                           const int64_t* __restrict__ b, int b_bcast,
+                           int64_t* __restrict__ out, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const fr::Fe x = fr::to_mont(fr::load_limbs(a + lane, B));
+  const fr::Fe y = fr::to_mont(
+      b_bcast ? fr::load_limbs(b, 1) : fr::load_limbs(b + lane, B));
+  fr::store_limbs(fr::from_mont(fr::mul(x, y)), out + lane, B);
+}
+template <int W>
+void team(const int64_t* a, const int64_t* b, int b_bcast, int64_t* out,
+          int B, cudaStream_t s) {
+  const long threads = (long)B * (fr::NW / W);
+  k6_team<W><<<(threads + 31) / 32, 32, 0, s>>>(a, b, b_bcast, out, B);
+}
+// W = 1, 2, 4, 8 words a thread of a team, 0 one thread a lane;
+// cudaErrorInvalidValue for another W
+extern "C" int k6_design_launch(int W, const int64_t* a, const int64_t* b,
+                                int b_bcast, int64_t* out, int B,
+                                cudaStream_t s) {
+  switch (W) {
+    case 0: k6_thread4<<<(B + 31) / 32, 32, 0, s>>>(a, b, b_bcast, out, B);
+            break;
+    case 1: team<1>(a, b, b_bcast, out, B, s); break;
+    case 2: team<2>(a, b, b_bcast, out, B, s); break;
+    case 4: team<4>(a, b, b_bcast, out, B, s); break;
+    case 8: team<8>(a, b, b_bcast, out, B, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+"""
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source, C entry, its argtypes)
 SOURCES = {
     "k3": (K3_SRC, "k3_design_launch", [_I, _P, _P, _P, _I, _I, _I, _P]),
+    "k6": (K6_SRC, "k6_design_launch", [_I, _P, _P, _I, _P, _I, _P]),
     "k7": (K7_SRC, "k7_design_launch", [_I, _P, _P, _I, _P, _I, _I, _P]),
 }
 
@@ -241,6 +302,31 @@ def in_turns(fns):
     return times
 
 
+def device_us(fns, reps=20):
+    """{name: [device us of each call]}: every fn called reps times in
+    turns, each call fenced by a synchronize, in one torch.profiler
+    session; each call must launch one kernel."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            for fn in fns.values():
+                fn()
+                torch.cuda.synchronize()
+    kernels = sorted((ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and not ev.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda ev: ev.time_range.start)
+    if len(kernels) != reps * len(fns):
+        raise AssertionError(f"profiler saw {len(kernels)} kernels, not "
+                             f"{reps} x {len(fns)}")
+    times = {name: [] for name in fns}
+    for i, ev in enumerate(kernels):
+        times[list(fns)[i % len(fns)]].append(ev.time_range.elapsed_us())
+    return times
+
+
 def design_fn(launch, design, out, what):
     def fn():
         rc = launch(design)
@@ -297,6 +383,30 @@ def run_k7(launch_design, batch, scan_len):
     return in_turns(fns)
 
 
+def run_k6(launch_design, batch, rng):
+    """({design: [ms, ms]} by CUDA events, {design: [us, ...]} of device
+    time) of K6 on batch random 256-bit lanes, b a (16, B) tensor."""
+    dev = torch.device("cuda")
+    a, b = (bn.to_tensor(bn.ints_to_limbs_batch(
+        [rng.getrandbits(256) for _ in range(batch)], 16), dev)
+        for _ in range(2))
+    out = torch.empty_like(a)
+
+    def launch(design):
+        return launch_design(design, a.data_ptr(), b.data_ptr(), 0,
+                             out.data_ptr(), batch, cuda_build.stream_of(a))
+
+    fns = {"shipped": lambda: cuda_field.mul(a, b)}
+    want = fns["shipped"]()
+    if not torch.equal(want, cuda_field.mul_plain(a, b)):
+        raise AssertionError("shipped K6 != mul_plain")
+    for design, name in K6_DESIGNS:
+        fns[name] = design_fn(launch, design, out, f"B={batch}")
+        if not torch.equal(fns[name](), want):
+            raise AssertionError(f"design {name} != mul")
+    return in_turns(fns), device_us(fns)
+
+
 def _line(head, times, rate=None):
     return head + ", ".join(
         f"{name} {ms[0]:.4f} / {ms[1]:.4f} ms" +
@@ -321,6 +431,13 @@ def main(argv=None) -> int:
         for t in WIDTHS:
             print(_line(f"K3 designs t={t}, B={args.batch}: ",
                         run_k3(launch, t, args.batch, rng)), flush=True)
+    elif args.kernel == "k6":
+        events, dev_us = run_k6(launch, args.batch, random.Random(args.seed))
+        print(_line(f"K6 designs B={args.batch}, CUDA events: ", events))
+        print(f"K6 designs B={args.batch}, device us (torch.profiler, "
+              f"{len(dev_us['shipped'])} calls each, mean / min): " +
+              ", ".join(f"{name} {sum(us) / len(us):.3f} / {min(us):.3f}"
+                        for name, us in dev_us.items()))
     else:
         print(_line(f"K7 designs n={args.scan_len}, B={args.batch}: ",
                     run_k7(launch, args.batch, args.scan_len),

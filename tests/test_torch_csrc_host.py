@@ -9,9 +9,10 @@ integer arithmetic). The code that splits a lane over several threads,
 joined by shuffles and ballots, runs here with those threads as coroutines
 that take turns at every exchange: the team arithmetic of fr_team.cuh (K4,
 K5: eight threads a lane), K3's split permutation (warp.cuh groups of 2 to
-32 threads), K7's chain on a team of 8 / W threads and K2's Montgomery
-modexp across a warp (32 threads). K1's many-message entry runs every
-thread of its launch, its plan of thread blocks checked lane by lane. This
+32 threads), K6's product and K7's chain on a team of 8 / W threads and
+K2's Montgomery modexp across a warp (32 threads). K1's many-message entry
+runs every thread of its launch, its plan of thread blocks checked lane by
+lane, and so do K8's elementwise bodies, one thread a (limb, lane). This
 catches arithmetic faults before they reach the card; the kernels
 themselves are built and compared on the card by chip_smoke.py.
 """
@@ -440,3 +441,51 @@ def test_fr_mul_chain_team(lib, W):
             assert bn.limbs_to_ints_batch(out[:16]) == \
                 [x * pow(y, n, fr.P) % fr.P if n else x
                  for x, y in zip(xs, ys)], (n, bcast)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+def test_fr_mul_team(lib, W):
+    """K6's lane body (frs::mul_lane: mont(a, R^2), then mont(b, a R)) on
+    a team of 8 / W threads a lane, against Python ints: every pair of the
+    edge values 0, 1, P-1, P and 2^256-1 (taken unreduced) and random
+    256-bit lanes, with a (16, B) b and with a broadcast (16, 1) column of
+    each edge value; the lane past the batch stores nothing (a sentinel row
+    after the output stays)."""
+    edges = [0, 1, fr.P - 1, fr.P, (1 << 256) - 1]
+    pairs = [(x, y) for x in edges for y in edges]
+    pairs += [(rng.getrandbits(256), rng.getrandbits(256)) for _ in range(3)]
+    xs, ys = [x for x, _ in pairs], [y for _, y in pairs]
+    B = len(xs)
+    a = np.ascontiguousarray(bn.ints_to_limbs_batch(xs, 16).astype(np.int64))
+    b = np.ascontiguousarray(bn.ints_to_limbs_batch(ys, 16).astype(np.int64))
+    cols = [(0, b, ys)] + [
+        (1, np.ascontiguousarray(_limbs(y)[:, None]), [y] * B) for y in edges]
+    for bcast, bb, want_ys in cols:
+        out = np.full((17, B), -1, np.int64)
+        assert lib.host_fr_mul_team(W, _ptr(a), _ptr(bb), bcast, _ptr(out),
+                                    B) == 0
+        assert (out[16] == -1).all()
+        assert bn.limbs_to_ints_batch(out[:16]) == \
+            [x * y % fr.P for x, y in zip(xs, want_ys)], bcast
+
+
+@pytest.mark.parametrize("B", [1, 31, 33])
+@pytest.mark.parametrize("body", cuda_loop.PER_LIMB)
+def test_loop_limb_threads(lib, body, B):
+    """K8's map of an elementwise body, one thread a (limb, lane): every
+    thread of the launch (whole blocks) run on the host, each lane against
+    body_ints; the threads past the batch store nothing (a sentinel row
+    after the output stays)."""
+    n = 5
+    xs = [rng.getrandbits(256) for _ in range(B)]
+    cs = [rng.getrandbits(256) for _ in range(B)]
+    a = np.ascontiguousarray(bn.ints_to_limbs_batch(xs, 16).astype(np.int64))
+    c = np.ascontiguousarray(bn.ints_to_limbs_batch(cs, 16).astype(np.int64))
+    out = np.full((17, B), -1, np.int64)
+    assert lib.host_loop_limbs(cuda_loop.BODIES.index(body), _ptr(a), _ptr(c),
+                               n, _ptr(out), B) == 0
+    assert (out[16] == -1).all()
+    assert bn.limbs_to_ints_batch(out[:16]) == \
+        [cuda_loop.body_ints(body, x, y, n) for x, y in zip(xs, cs)]
+    assert lib.host_loop_limbs(cuda_loop.BODIES.index("school"), _ptr(a),
+                               _ptr(c), n, _ptr(out), B) == -1

@@ -271,17 +271,30 @@ def _wide(dev, n=B):
     return xs, bn.to_tensor(bn.ints_to_limbs_batch(xs, 16), dev)
 
 
+@pytest.mark.parametrize("n_lanes", [1, 7, B, 1024, 1025])
 @pytest.mark.parametrize("bcast", [False, True])
-def test_field_mul_kernel(dev, bcast):
-    xs, a = _wide(dev)
-    ys, b = _wide(dev)
-    b = b.flip(1)[:, :1] if bcast else b.flip(1)
-    ys = ys[::-1][:1] * B if bcast else ys[::-1]
-    before = cuda_field.mul.launches
-    out = cuda_field.mul(a, b)
-    assert cuda_field.mul.launches == before + 1
-    _same(out, cuda_field.mul_plain(a, b))
-    assert fr.batch_from_limbs(out) == [x * y % fr.P for x, y in zip(xs, ys)]
+def test_field_mul_kernel(dev, bcast, n_lanes):
+    """K6 (a lane on a team of threads, two products) against the plain
+    product and Python ints on lanes 0, 1, P-1, P, 2^256-1 and random ones
+    on both operands, with a team past the batch at odd B; broadcast: a
+    (16, 1) column of each edge value and of a random one."""
+    xs, a = _wide(dev, max(n_lanes, 5))
+    ys, b = _wide(dev, max(n_lanes, 5))
+    xs, a = xs[:n_lanes], a[:, :n_lanes].contiguous()
+    ys, b = ys[::-1][:n_lanes], b.flip(1)[:, :n_lanes].contiguous()
+    if bcast:
+        cols = [([y] * n_lanes, bn.to_tensor(bn.ints_to_limbs_batch([y], 16),
+                                             dev))
+                for y in [0, 1, fr.P - 1, fr.P, (1 << 256) - 1, ys[0]]]
+    else:
+        cols = [(ys, b)]
+    for ys, b in cols:
+        before = cuda_field.mul.launches
+        out = cuda_field.mul(a, b)
+        assert cuda_field.mul.launches == before + 1
+        _same(out, cuda_field.mul_plain(a, b))
+        assert fr.batch_from_limbs(out) == \
+            [x * y % fr.P for x, y in zip(xs, ys)]
 
 
 @pytest.mark.parametrize("n_lanes", [1, B, 1024])
@@ -306,15 +319,26 @@ def test_field_mul_chain_kernel(dev, n, bcast, n_lanes):
     assert bn.limbs_to_ints_batch(out) == want
 
 
+@pytest.mark.parametrize("n_lanes", [1, 33, B, 1024, 1025])
 @pytest.mark.parametrize("body", cuda_loop.BODIES)
-def test_loop_kernel_every_body(dev, body):
-    a = torch.tensor(np.array([[rng.randrange(1 << 16) for _ in range(B)]
+def test_loop_kernel_every_body(dev, body, n_lanes):
+    """Every K8 body against its plain version and, lane by lane, Python
+    ints (body_ints), at batches whose last block, team or limb row is
+    ragged."""
+    a = torch.tensor(np.array([[rng.randrange(1 << 16)
+                                for _ in range(n_lanes)]
                                for _ in range(16)]), device=dev)
-    c = torch.tensor(np.array([[rng.randrange(1, 1 << 16) for _ in range(B)]
+    c = torch.tensor(np.array([[rng.randrange(1, 1 << 16)
+                                for _ in range(n_lanes)]
                                for _ in range(16)]), device=dev)
+    xs, cs = bn.limbs_to_ints_batch(a), bn.limbs_to_ints_batch(c)
     for n in (1, 7):
-        _same(cuda_loop.loop(body, a, c, n),
-              cuda_loop.loop_plain(body, a, c, n))
+        before = cuda_loop.loop.launches
+        out = cuda_loop.loop(body, a, c, n)
+        assert cuda_loop.loop.launches == before + 1
+        _same(out, cuda_loop.loop_plain(body, a, c, n))
+        assert bn.limbs_to_ints_batch(out) == \
+            [cuda_loop.body_ints(body, x, y, n) for x, y in zip(xs, cs)]
 
 
 @pytest.mark.parametrize("name", cuda_probe.PROBES)

@@ -162,6 +162,35 @@ void chain_lanes(const int64_t* a, const int64_t* c, int c_bcast,
     });
 }
 
+// K6's lane body (frs::mul_lane) on lanes 0..B of a batch of B, a team of
+// 8 / W coroutines a lane; lane B runs past the batch and must store
+// nothing
+template <int W>
+void mul_lanes(const int64_t* a, const int64_t* b, int b_bcast, int64_t* out,
+               int B) {
+  constexpr int TW = fr::NW / W;
+  for (long lane = 0; lane <= B; ++lane)
+    run_threads(TW, [&](unsigned i) {
+      frs::mul_lane<W>(wp::Group<TW>{i, 0}, a, b, b_bcast, out, lane, B);
+    });
+}
+
+// K8's threads of a PerLimb body on a batch of B: every thread of the
+// launch, whole blocks of LIMB_BLOCK; -1 for a body that is not PerLimb
+template <class Body>
+int limb_launch(const int64_t* a, const int64_t* c, int n_iter, int64_t* out,
+                int B) {
+  if constexpr (loopb::per_limb<Body>) {
+    const long blocks =
+        ((long)loopb::NL * B + loopb::LIMB_BLOCK - 1) / loopb::LIMB_BLOCK;
+    for (long idx = 0; idx < blocks * loopb::LIMB_BLOCK; ++idx)
+      loopb::limb_thread<Body>(a, c, out, n_iter, idx, B);
+    return 0;
+  } else {
+    return -1;
+  }
+}
+
 static fr::Fe load(const int64_t* x) { return fr::to_mont(fr::load_limbs(x, 1)); }
 static void store(const fr::Fe& a, int64_t* x) { fr::store_limbs(fr::from_mont(a), x, 1); }
 
@@ -331,6 +360,19 @@ int host_loop(int body, const int64_t* a, const int64_t* c, int n_iter,
   return -1;
 }
 
+// K8's launch of body number `body` as one thread a (limb, lane): a, c, out
+// (16, B). Returns -1 for a body K8 does not run that way.
+int host_loop_limbs(int body, const int64_t* a, const int64_t* c, int n_iter,
+                    int64_t* out, int B) {
+  switch (body) {
+#define HOST_LIMB_CASE(id, T) \
+  case id:                    \
+    return limb_launch<loopb::T>(a, c, n_iter, out, B);
+    PZK_LOOP_BODIES(HOST_LIMB_CASE)
+  }
+  return -1;
+}
+
 // K3 at width t on B lanes: state (16 t, B), out (16 n_outs, B). Returns
 // -1 for a width the host build does not instantiate.
 int host_poseidon_split(const int64_t* state, const uint32_t* pack, int t,
@@ -409,6 +451,19 @@ int host_fr_chain(int W, const int64_t* a, const int64_t* c, int c_bcast,
     case 2: chain_lanes<2>(a, c, c_bcast, out, n, B); return 0;
     case 4: chain_lanes<4>(a, c, c_bcast, out, n, B); return 0;
     case 8: chain_lanes<8>(a, c, c_bcast, out, n, B); return 0;
+  }
+  return -1;
+}
+
+// K6 with a team of 8 / W threads a lane: a, out (16, B); b (16, B) or
+// (16, 1) when b_bcast. Returns -1 for a W that does not divide 8.
+int host_fr_mul_team(int W, const int64_t* a, const int64_t* b, int b_bcast,
+                     int64_t* out, int B) {
+  switch (W) {
+    case 1: mul_lanes<1>(a, b, b_bcast, out, B); return 0;
+    case 2: mul_lanes<2>(a, b, b_bcast, out, B); return 0;
+    case 4: mul_lanes<4>(a, b, b_bcast, out, B); return 0;
+    case 8: mul_lanes<8>(a, b, b_bcast, out, B); return 0;
   }
   return -1;
 }
