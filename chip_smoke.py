@@ -22,7 +22,9 @@ launch counter set to 0 just before it and read just after:
   K5's affine entry;
 * the field-muls/s path: tools/microbench_field at batch 1024, 256
   chained products a call: K6, K7, K8;
-* the probe battery: tools/probe_nvcc: K9.
+* the probe battery: tools/probe_nvcc: K9, each probe alone in a launch of
+  its own (the entry probe), then the kernel probes together in one launch
+  (the entry probe_battery).
 
 The script
 
@@ -42,7 +44,8 @@ The script
    even-modulus lane, K3 also width by width; K6 and K8 on every lane
    against the Python ints, K6 also with a broadcast column of each edge
    value; the device time of one call of K1 (three routes), K6, K7, K8
-   and K9 from torch.profiler, each held to its kernels' names, and every
+   and K9 (the battery's one launch, and each of its roles alone) from
+   torch.profiler, each held to its kernels' names, and every
    launch of that session to its kernel record; registers and spills of
    K1, K6 and K7 from nvcc's -Xptxas -v (no spills);
 5. builds flagship inputs with the port's ingest, runs
@@ -64,7 +67,8 @@ The script
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
-   (K9 must launch, every probe must pass), and prints K7's field-muls/s;
+   (K9 must launch for each probe alone and once for the battery, every
+   probe must pass), and prints K7's field-muls/s;
 8. prints the floors' JSON line (models, apart from the measurements),
    the kernels' JSON line, then {"ok": true, "device": ...} last.
 
@@ -150,6 +154,9 @@ KERNELS = {
     "probe": (cuda_probe.probe,
               "passport_zk_circuits_tpu_torch/csrc/probe.cu",
               "tools/probe_mosaic.py:38"),
+    "probe_battery": (cuda_probe.battery,
+                      "passport_zk_circuits_tpu_torch/csrc/probe.cu",
+                      "tools/probe_mosaic.py:38"),
 }
 WITNESS_KERNELS = ("sha2_32_chunks_many", "pow_mod", "poseidon_ex",
                    "smt_climb", "ladder_affine")
@@ -174,13 +181,8 @@ KERNEL_OF_SYMBOL = {"sha256_many_kernel": "sha2_32_chunks_many",
                     "poseidon_kernel": "poseidon_ex",
                     "smt_climb_kernel": "smt_climb",
                     "ladder_kernel": "ladder_affine"}
-# K9's kernel probes -> the csrc/probe.cu kernel each launches
-PROBE_KERNELS = {"basic": "basic_kernel", "mul_wide": "mul_wide_kernel",
-                 "smem_dynamic_large": "smem_kernel",
-                 "shfl_carry": "shfl_carry_kernel",
-                 "cp_async": "cp_async_kernel",
-                 "bulk_copy_mbarrier": "bulk_copy_kernel",
-                 "mma_s8": "mma_s8_kernel", "cluster_dsmem": "cluster_kernel"}
+# K9's one kernel: a probe alone and the battery both launch it
+PROBE_KERNEL = "probe_battery_kernel"
 
 # -- the least time the card could take (bound_ms) ---------------------------
 # The larger of the bytes a kernel must move (each int64 input read once,
@@ -974,40 +976,74 @@ def phase_loop(dev, rng):
 
 
 def phase_probe(dev, rng):
-    """K9: the battery through its entry point (tools/probe_nvcc), every
-    probe must pass and the probe counter must move; then the kernel
-    probes (less the refused launch) timed as one battery."""
+    """K9 through its entry point (tools/probe_nvcc): every probe alone,
+    one launch each, then the kernel probes together in one launch; every
+    probe must pass and both counters must move (the battery's by one).
+    Then the kernel probes less the refused launch, on the same inputs,
+    timed in one launch (probe_battery) and one launch each (probe): the
+    profiler's times of the latter are each role's time alone."""
     reset_launches()
     results = probe_nvcc.run_all(dev)
     failed = {k: v for k, v in results.items() if v}
     check(not failed, f"probes failed: {failed}")
-    launches = cuda_probe.probe.launches
-    check(launches > 0, "probe battery launched no K9 kernel")
-    print(f"  the probe battery: launches {{'probe': {launches}}}")
-    names = [n for n in cuda_probe.KERNEL_PROBES if n != "refused_launch"]
-    ins = {n: cuda_probe.inputs(n, dev) for n in names}
-    outs = {n: cuda_probe.plain(n, i0, i1) for n, (i0, i1) in ins.items()}
-    nbytes = 8 * sum(sum(x.numel() for x in (i0, i1) if x is not None)
-                     + outs[n].numel() for n, (i0, i1) in ins.items())
-    int_ops = (4 * ins["basic"][0].numel() + 3 * ins["mul_wide"][0].numel()
-               + 17 * 5 * ins["shfl_carry"][0].numel())
-    mma_ops = 2 * 16 * 8 * 32 * cuda_probe.MMA_TILES
-    _, entry = compare(
-        "probe",
-        lambda: torch.cat([cuda_probe.probe(n, i0, i1).reshape(-1)
-                           for n, (i0, i1) in ins.items()]),
-        lambda: torch.cat([cuda_probe.plain(n, i0, i1).reshape(-1)
-                           for n, (i0, i1) in ins.items()]),
-        nbytes=nbytes, int_ops=int_ops, mma_ops=mma_ops)
-    to_profile(entry, lambda: [cuda_probe.probe(n, i0, i1)
-                               for n, (i0, i1) in ins.items()],
-               [PROBE_KERNELS[n] for n in ins])
-    entry["launches_by_path"] = {"the probe battery": launches}
-    entry["launches"] = launches
-    entry["shape"] = (f"{len(results)} probes; timed: {len(names)} kernel "
-                      "probes, one launch each")
+    launches = {"probe": cuda_probe.probe.launches,
+                "probe_battery": cuda_probe.battery.launches}
+    print(f"  the probe battery: launches {launches}")
+    check(launches["probe"] > 0, "no probe launched K9 alone")
+    check(launches["probe_battery"] == 1,
+          "the battery did not run its kernel probes in one K9 launch")
+    ins = {n: cuda_probe.inputs(n, dev) for n in cuda_probe.BATTERY}
+
+    def plain():
+        return [cuda_probe.plain(n, *pair) for n, pair in ins.items()]
+    work = dict(
+        nbytes=8 * sum(sum(x.numel() for x in pair if x is not None)
+                       + out.numel() for pair, out in zip(ins.values(),
+                                                          plain())),
+        int_ops=(4 * ins["basic"][0].numel() + 3 * ins["mul_wide"][0].numel()
+                 + 17 * 5 * ins["shfl_carry"][0].numel()),
+        mma_ops=2 * 16 * 8 * 32 * cuda_probe.MMA_TILES)
+
+    def one_launch():
+        outs = cuda_probe.battery(ins)
+        return [outs[n] for n in ins]
+
+    def launch_each():
+        return [cuda_probe.probe(n, *pair) for n, pair in ins.items()]
+    _, one = compare("probe_battery", one_launch, plain, **work)
+    _, each = compare("probe", launch_each, plain, **work)
+    to_profile(one, one_launch, [PROBE_KERNEL])
+    to_profile(each, launch_each, [PROBE_KERNEL] * len(ins))
+    plan = cuda_probe.battery_plan(ins)
+    for e in (one, each):
+        e["launches_by_path"] = {"the probe battery": launches[e["name"]]}
+        e["launches"] = launches[e["name"]]
+    one["shape"] = (f"{len(ins)} kernel probes in one launch of "
+                    f"{sum(p[3] for p in plan)} blocks of "
+                    f"{cuda_probe.THREADS} threads")
+    each["shape"] = f"the same {len(ins)} kernel probes, one launch each"
+    print(f"  K9 roles (name, n, first block, blocks): {plan}")
     print(f"  probes passed: {', '.join(results)}")
-    return entry
+    return [one, each]
+
+
+def probe_roles(entries):
+    """After device_profile: each K9 role's device time alone (the probe
+    entry's launches, in BATTERY's order) beside the battery's one launch;
+    the slowest role's time goes into the battery's entry as
+    slowest_role_ms, a measurement that the one launch cannot beat."""
+    one = next(e for e in entries if e["name"] == "probe_battery")
+    each = next(e for e in entries if e["name"] == "probe")
+    roles = dict(zip(cuda_probe.BATTERY, each["profiler_device_us"]))
+    each["role_device_us"] = roles
+    for name, us in roles.items():
+        print(f"  K9 role {name}: {us:.3f} us device alone")
+    slowest = max(roles, key=roles.get)
+    one["slowest_role_ms"] = roles[slowest] / 1e3
+    print(f"  K9 battery: one launch {one['profiler_device_us'][0]:.3f} us "
+          f"device, its roles alone {sum(roles.values()):.3f} us in all; "
+          f"slowest role {slowest} {roles[slowest]:.3f} us; bound "
+          f"{one['bound_ms'] * 1e3:.3f} us; card: {CARD['name']}")
 
 
 def flagship_batch(p, rng):
@@ -1326,6 +1362,7 @@ def main():
     prof = device_profile(forwards)
     print(f"  the profiler's session and its events: "
           f"{time.perf_counter() - t0:.1f} s (host)")
+    probe_roles(entries)
     for label, st in prof.items():
         print(f"one {label} forward under torch.profiler: {st['kernels']} "
               f"CUDA kernels, {st['device_ms']:.2f} ms device, "

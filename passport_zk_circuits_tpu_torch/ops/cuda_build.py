@@ -43,7 +43,8 @@ _SIGNATURES = {
     "pzk_fr_mul": [_P, _P, _I, _P, _I, _P],
     "pzk_fr_mul_chain": [_P, _P, _I, _P, _I, _I, _P],
     "pzk_loop": [_I, _P, _P, _P, _I, _I, _P],
-    "pzk_probe": [_I, _P, _P, _P, _I, _P],
+    "pzk_probe": [_I, _P, _P, _P, _I, _I, _P],
+    "pzk_probe_battery": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

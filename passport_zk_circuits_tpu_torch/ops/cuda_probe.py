@@ -1,5 +1,5 @@
-"""K9: the probe battery (csrc/probe.cu), each probe a tiny kernel checked
-bit for bit against its plain PyTorch version.
+"""K9: the probe battery (csrc/probe.cu), each probe checked bit for bit
+against its plain PyTorch version.
 
 Replaces ``run_kernel`` of ``tools/probe_mosaic.py``, a battery that found
 what the Pallas TPU compiler accepts. The card's battery checks what the
@@ -8,10 +8,17 @@ memory, a refused launch raising) and what their redesigns will need
 (warp shuffles, cp.async, bulk copies on an mbarrier, int8 mma.sync, thread
 block clusters). The last three probes run K6, K3 and K4 at B = 128 against
 the Python-int oracles, as ``probe_mosaic.py``'s field_mul, poseidon_t3 and
-smt_climb do. Each probe moves kilobytes and is bound by launch latency.
+smt_climb do.
+
+One kernel runs every kernel probe: a block takes the role of one probe
+from a table that ``battery_plan`` computes. ``probe`` launches one probe
+(its own launch, so a hang names it); ``battery`` launches the kernel
+probes of ``BATTERY`` at once, one output each.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,6 +32,7 @@ from . import smt
 from ..utils import poseidon_ref as pref
 
 B = 128
+THREADS = 1024                      # csrc/probe.cu kThreads: every block
 ASYNC_WORDS = 2048                  # csrc/probe.cu kAsyncWords
 SMEM_WORDS = 51200                  # 200 KB of 32-bit words
 MMA_TILES = 8
@@ -35,6 +43,10 @@ KERNEL_PROBES = ("basic", "mul_wide", "smem_dynamic_large", "refused_launch",
                  "cluster_dsmem")
 ORACLE_PROBES = ("field_mul", "poseidon_t3", "smt_climb")
 PROBES = KERNEL_PROBES + ORACLE_PROBES
+# the kernel probes of one battery launch: a refused launch runs alone
+BATTERY = tuple(n for n in KERNEL_PROBES if n != "refused_launch")
+# probes whose work is one block's shared memory
+ONE_BLOCK = ("smem_dynamic_large", "cp_async", "bulk_copy_mbarrier")
 
 
 def inputs(name: str, device, seed: int = 0):
@@ -90,29 +102,99 @@ def plain(name: str, in0, in1=None):
     raise ValueError(f"unknown kernel probe {name!r}")
 
 
+def battery_plan(ins):
+    """The role table of one launch of the kernel probes of ins ({name:
+    (in0, in1 or None)}), in ins's order: [(name, n, first block, blocks)].
+    n is what the probe's body takes (B numbers for shfl_carry, tiles for
+    mma_s8, else in0's words). The roles lie back to back from block 0,
+    each on an even block with an even count (clusters of two blocks), and
+    each has a block of THREADS threads for every THREADS threads of work:
+    a thread a word (basic, mul_wide, cluster_dsmem), 16 a number
+    (shfl_carry), a warp a tile (mma_s8); the ONE_BLOCK probes one block."""
+    plan, first = [], 0
+    for name, (in0, _) in ins.items():
+        if name not in KERNEL_PROBES:
+            raise ValueError(f"unknown kernel probe {name!r}")
+        n = {"shfl_carry": in0.shape[-1], "mma_s8": in0.shape[0]}.get(
+            name, in0.numel())
+        threads = {"shfl_carry": 16 * n, "mma_s8": 32 * n}.get(name, n)
+        blocks = 1 if name in ONE_BLOCK else -(-threads // THREADS)
+        blocks = max(2, blocks + blocks % 2)
+        plan.append((name, n, first, blocks))
+        first += blocks
+    return plan
+
+
+def _out(name, in0):
+    shape = {"mul_wide": (2 * in0.numel(),),
+             "mma_s8": (in0.shape[0], 16, 8)}.get(name, in0.shape)
+    return torch.empty(shape, dtype=torch.int64, device=in0.device)
+
+
 def probe(name: str, in0, in1=None):
     """Run a kernel probe. A CPU tensor takes the plain version; a CUDA
-    tensor launches the probe's kernel."""
+    tensor launches the battery's kernel with this probe alone."""
     if not in0.is_cuda:
         return plain(name, in0, in1)
     ins = [x.contiguous() for x in (in0, in1) if x is not None]
     cuda_build.require_cuda_int64("probe", *ins)
-    out_shape = {"mul_wide": (2 * in0.numel(),),
-                 "mma_s8": (in0.shape[0], 16, 8)}.get(name, in0.shape)
-    out = torch.empty(out_shape, dtype=torch.int64, device=in0.device)
-    n = {"shfl_carry": in0.shape[-1], "mma_s8": in0.shape[0]}.get(
-        name, in0.numel())
+    ((_, n, _, blocks),) = battery_plan({name: (in0, in1)})
+    out = _out(name, in0)
     lib = cuda_build.library()
     with torch.cuda.device(in0.device):
         rc = lib.pzk_probe(KERNEL_PROBES.index(name), ins[0].data_ptr(),
                            ins[1].data_ptr() if len(ins) > 1 else None,
-                           out.data_ptr(), n, cuda_build.stream_of(in0))
+                           out.data_ptr(), n, blocks,
+                           cuda_build.stream_of(in0))
     cuda_build.check(rc, f"probe {name}")
     probe.launches += 1
     return out
 
 
 probe.launches = 0
+
+
+def battery(ins):
+    """Run the kernel probes of ins ({name: (in0, in1 or None)}, each of
+    BATTERY at most once) together; returns {name: output}. CPU tensors
+    take the plain versions; CUDA tensors launch the kernel once, with
+    battery_plan's table."""
+    if not ins or not set(ins) <= set(BATTERY):
+        raise ValueError(f"battery: probes of {BATTERY}, got {list(ins)}")
+    tensors = [x for pair in ins.values() for x in pair if x is not None]
+    if not any(x.is_cuda for x in tensors):
+        return {name: plain(name, *pair) for name, pair in ins.items()}
+    cuda_build.require_cuda_int64("probe battery", *tensors)
+    ins = {name: tuple(None if x is None else x.contiguous() for x in pair)
+           for name, pair in ins.items()}
+    plan = battery_plan(ins)
+    outs = {name: _out(name, in0) for name, (in0, _) in ins.items()}
+    k = len(plan)
+    ptrs, ints = ctypes.c_void_p * k, ctypes.c_int * k
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    ids, in0s, in1s, out_ptrs, ns, firsts, counts = zip(*[
+        (KERNEL_PROBES.index(name), ptr(ins[name][0]), ptr(ins[name][1]),
+         outs[name].data_ptr(), n, first, blocks)
+        for name, n, first, blocks in plan])
+    lib = cuda_build.library()
+    with torch.cuda.device(tensors[0].device):
+        rc = lib.pzk_probe_battery(
+            k, ints(*ids), ptrs(*in0s), ptrs(*in1s), ptrs(*out_ptrs),
+            ints(*ns), ints(*firsts), ints(*counts),
+            cuda_build.stream_of(tensors[0]))
+    cuda_build.check(rc, "probe battery")
+    battery.launches += 1
+    return outs
+
+
+battery.launches = 0
+
+
+def mismatches(got, want):
+    """The probes whose outputs in got differ from want ({name: tensor})."""
+    return [name for name in want if not torch.equal(got[name], want[name])]
 
 
 def _oracle_probe(name: str, device, seed: int):
@@ -161,3 +243,15 @@ def run(name: str, device, seed: int = 0) -> None:
     got, want = probe(name, in0, in1), plain(name, in0, in1)
     if not torch.equal(got, want):
         raise AssertionError(f"probe {name}: kernel differs from plain")
+
+
+def run_battery(device, names=BATTERY) -> None:
+    """Run the kernel probes names (of BATTERY) in one battery on device and
+    check each output; raises AssertionError naming every probe that
+    differs from its plain version."""
+    ins = {name: inputs(name, device) for name in names}
+    bad = mismatches(battery(ins), {name: plain(name, *pair)
+                                    for name, pair in ins.items()})
+    if bad:
+        raise AssertionError(f"probe battery: {', '.join(bad)} differ from "
+                             "plain")

@@ -39,7 +39,11 @@ VIEWS = {"aten::" + n for n in (
 
 
 def launching_ops(fn):
-    """(ops that make new data, by name) of one call of fn."""
+    """(ops that make new data, by name) of one warm call of fn: fn runs
+    once before the profiled call, so the count leaves out what a first
+    call does once (a StaticMod builds and caches its constants) and is
+    the count of the call the card repeats."""
+    fn()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         fn()

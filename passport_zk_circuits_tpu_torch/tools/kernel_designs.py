@@ -2,7 +2,7 @@
 card, B = 1024 by default.
 
     python -m passport_zk_circuits_tpu_torch.tools.kernel_designs \\
-        --kernel k3|k6|k7 [--batch 1024] [--scan-len 256]
+        --kernel k3|k6|k7|k9 [--batch 1024] [--scan-len 256]
 
 K3, the Poseidon permutation, at the flagship step's widths t = 2, 3, 4, 6:
 
@@ -38,6 +38,18 @@ path's inputs (tools/microbench_field.make_inputs: a (16, 1) column c):
   thread a lane with fr_bn254.cuh's product). The shipped kernel
   (csrc/field.cu) runs W = frs::CHAIN_W.
 
+K9, the probe battery, is as slow as its slowest role, smem_dynamic_large:
+51,200 32-bit words (int64 in and out, 819 KB) through one block's 200 KB
+of dynamic shared memory, read back reversed. Its designs, each launched
+as a cluster of two blocks as the battery's kernel is:
+
+- T x U, V B: block 0 alone, T threads, U loads a thread in flight of V
+  bytes each (8: one word, 16: two); the shipped role is 1024 x 4, 8 B;
+- pair T x U, V B: both blocks of the cluster fill and drain block 0's
+  buffer, block 1 through distributed shared memory, half the words each.
+
+K9's designs are timed by device time (torch.profiler), as K6's are.
+
 The designs' source is compiled by nvcc into ``_build/kernel_designs/``,
 and each design kernel's registers and spills are printed from
 ``-Xptxas -v``, with its divergent branches and warp syncs from
@@ -62,6 +74,7 @@ from ..ops import bignum as bn
 from ..ops import cuda_build
 from ..ops import cuda_field
 from ..ops import cuda_poseidon
+from ..ops import cuda_probe
 from ..ops import field as fr
 from ..ops import poseidon as pos
 from . import microbench_field
@@ -222,12 +235,112 @@ extern "C" int k6_design_launch(int W, const int64_t* a, const int64_t* b,
   return (int)cudaGetLastError();
 }
 """
+K9_SRC = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+namespace cg = cooperative_groups;
+// n words (n % 4 == 0) in through shared memory and out reversed: T
+// threads, U loads a thread in flight of V words; PAIR: block r of the
+// cluster moves words [r n / 2, (r + 1) n / 2) through block 0's buffer
+template <int T, int U, int V, bool PAIR>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(T)
+    k9_smem(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+            int n) {
+  extern __shared__ __align__(16) uint32_t local[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  if (!PAIR && rank != 0) return;
+  uint32_t* sm = PAIR ? cluster.map_shared_rank(local, 0) : local;
+  const int lo = PAIR ? rank * (n / 2) : 0, hi = PAIR ? lo + n / 2 : n;
+  for (int base = lo; base < hi; base += T * U * V) {
+    uint32_t v[U * V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + (u * T + threadIdx.x) * V;
+      if constexpr (V == 2) {
+        const longlong2 x = i < hi
+            ? *reinterpret_cast<const longlong2*>(in + i)
+            : make_longlong2(0, 0);
+        v[2 * u] = (uint32_t)x.x;
+        v[2 * u + 1] = (uint32_t)x.y;
+      } else {
+        v[u] = i < hi ? (uint32_t)in[i] : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + (u * T + threadIdx.x) * V;
+      if (i >= hi) continue;
+      if constexpr (V == 2)
+        *reinterpret_cast<uint2*>(sm + i) = make_uint2(v[2 * u], v[2 * u + 1]);
+      else
+        sm[i] = v[u];
+    }
+  }
+  if (PAIR) cluster.sync(); else __syncthreads();
+  for (int base = lo; base < hi; base += T * U * V) {
+    uint32_t v[U * V];
+#pragma unroll
+    for (int u = 0; u < U * V; ++u) {
+      const int i = base + (u / V * T + threadIdx.x) * V + u % V;
+      v[u] = i < hi ? sm[n - 1 - i] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + (u * T + threadIdx.x) * V;
+      if (i >= hi) continue;
+      if constexpr (V == 2)
+        *reinterpret_cast<longlong2*>(out + i) =
+            make_longlong2(v[2 * u], v[2 * u + 1]);
+      else
+        out[i] = v[u];
+    }
+  }
+  if (PAIR) cluster.sync();   // block 0 may not exit while it is read
+}
+template <int T, int U, int V, bool PAIR>
+int smem(const int64_t* in, int64_t* out, int n, cudaStream_t s) {
+  const int bytes = n * 4;
+  cudaError_t rc = cudaFuncSetAttribute(
+      k9_smem<T, U, V, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  k9_smem<T, U, V, PAIR><<<2, T, bytes, s>>>(in, out, n);
+  return (int)cudaGetLastError();
+}
+// the designs of K9_DESIGNS, in order; in and out 16-byte aligned
+extern "C" int k9_design_launch(int design, const int64_t* in,
+                                int64_t* out, int n, cudaStream_t s) {
+  if (n % 4) return (int)cudaErrorInvalidValue;
+  switch (design) {
+CASES
+  }
+  return (int)cudaErrorInvalidValue;
+}
+"""
+# (threads, loads a thread in flight, words a load, pair)
+K9_DESIGNS = ((128, 16, 1, False), (128, 16, 2, False), (128, 32, 2, False),
+              (256, 16, 1, False), (1024, 4, 1, False), (1024, 8, 1, False),
+              (128, 16, 1, True), (128, 32, 2, True), (256, 16, 1, True),
+              (1024, 4, 1, True))
+K9_SRC = K9_SRC.replace("CASES", "\n".join(
+    f"    case {d}: return smem<{t}, {u}, {v}, {str(pair).lower()}>"
+    "(in, out, n, s);" for d, (t, u, v, pair) in enumerate(K9_DESIGNS)))
+
+
+def k9_name(design):
+    t, u, v, pair = design
+    return f"{'pair ' if pair else ''}{t} x {u}, {8 * v} B"
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source, C entry, its argtypes)
 SOURCES = {
     "k3": (K3_SRC, "k3_design_launch", [_I, _P, _P, _P, _I, _I, _I, _P]),
     "k6": (K6_SRC, "k6_design_launch", [_I, _P, _P, _I, _P, _I, _P]),
     "k7": (K7_SRC, "k7_design_launch", [_I, _P, _P, _I, _P, _I, _I, _P]),
+    "k9": (K9_SRC, "k9_design_launch", [_I, _P, _P, _I, _P]),
 }
 
 
@@ -407,6 +520,29 @@ def run_k6(launch_design, batch, rng):
     return in_turns(fns), device_us(fns)
 
 
+def run_k9(launch_design):
+    """({design: [ms, ms]} by CUDA events, {design: [us, ...]} of device
+    time) of K9's smem_dynamic_large role on its probe's inputs."""
+    dev = torch.device("cuda")
+    a, _ = cuda_probe.inputs("smem_dynamic_large", dev)
+    out = torch.empty_like(a)
+
+    def launch(design):
+        return launch_design(design, a.data_ptr(), out.data_ptr(),
+                             a.numel(), cuda_build.stream_of(a))
+
+    fns = {"shipped": lambda: cuda_probe.probe("smem_dynamic_large", a)}
+    want = cuda_probe.plain("smem_dynamic_large", a)
+    if not torch.equal(fns["shipped"](), want):
+        raise AssertionError("shipped K9 smem_dynamic_large != plain")
+    for design, spec in enumerate(K9_DESIGNS):
+        name = k9_name(spec)
+        fns[name] = design_fn(launch, design, out, "smem_dynamic_large")
+        if not torch.equal(fns[name](), want):
+            raise AssertionError(f"design {name} != plain")
+    return in_turns(fns), device_us(fns)
+
+
 def _line(head, times, rate=None):
     return head + ", ".join(
         f"{name} {ms[0]:.4f} / {ms[1]:.4f} ms" +
@@ -435,6 +571,13 @@ def main(argv=None) -> int:
         events, dev_us = run_k6(launch, args.batch, random.Random(args.seed))
         print(_line(f"K6 designs B={args.batch}, CUDA events: ", events))
         print(f"K6 designs B={args.batch}, device us (torch.profiler, "
+              f"{len(dev_us['shipped'])} calls each, mean / min): " +
+              ", ".join(f"{name} {sum(us) / len(us):.3f} / {min(us):.3f}"
+                        for name, us in dev_us.items()))
+    elif args.kernel == "k9":
+        events, dev_us = run_k9(launch)
+        print(_line("K9 smem_dynamic_large designs, CUDA events: ", events))
+        print(f"K9 smem_dynamic_large designs, device us (torch.profiler, "
               f"{len(dev_us['shipped'])} calls each, mean / min): " +
               ", ".join(f"{name} {sum(us) / len(us):.3f} / {min(us):.3f}"
                         for name, us in dev_us.items()))

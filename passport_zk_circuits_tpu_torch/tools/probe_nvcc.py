@@ -4,8 +4,10 @@ probe as it finishes.
 Counterpart of ``tools/probe_mosaic.py``: that battery found what the
 Pallas TPU compiler accepts; this one checks, probe by probe, what the
 port's hand-written kernels rely on and what their redesigns will need
-(``ops/cuda_probe.py`` lists them). Every probe runs even after one fails,
-and the command exits non-zero if any failed.
+(``ops/cuda_probe.py`` lists them). Each probe runs alone, in a launch of
+its own, so a hang names its probe; then the kernel probes among them run
+together in one launch (``battery``). Every probe runs even after one
+fails, and the command exits non-zero if any failed.
 
     python -m passport_zk_circuits_tpu_torch.tools.probe_nvcc \\
         [--device cuda] [probe ...]
@@ -24,13 +26,20 @@ from ..ops import cuda_probe
 
 def run_all(device, names=None) -> dict:
     """{probe: None if it passed, else its error message}, printing as it
-    goes."""
+    goes; the key "battery" holds the kernel probes' one launch."""
+    names = list(names or cuda_probe.PROBES)
+    jobs = [(name, lambda name=name: cuda_probe.run(name, device))
+            for name in names]
+    in_battery = [name for name in names if name in cuda_probe.BATTERY]
+    if in_battery:
+        jobs.append(("battery", lambda: cuda_probe.run_battery(device,
+                                                               in_battery)))
     results = {}
-    for name in names or cuda_probe.PROBES:
+    for name, fn in jobs:
         t0 = time.perf_counter()
         print(f"PROBE {name} ...", flush=True)
         try:
-            cuda_probe.run(name, device)
+            fn()
             results[name] = None
         except Exception as e:       # reported, and the run fails below
             results[name] = f"{type(e).__name__}: {e}".replace("\n", " | ")

@@ -1,6 +1,7 @@
 """The hand-written kernels on the card, each against its plain
 PyTorch version on the same CUDA tensors (bit for bit: tolerance 0), at
-small and ragged batches, and the K9 probe battery probe by probe. Needs a CUDA device and skips without one. The machine with
+small and ragged batches, and the K9 probe battery probe by probe and in
+one launch. Needs a CUDA device and skips without one. The machine with
 the card has no JAX, so run these without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
@@ -344,3 +345,38 @@ def test_loop_kernel_every_body(dev, body, n_lanes):
 @pytest.mark.parametrize("name", cuda_probe.PROBES)
 def test_probe(dev, name):
     cuda_probe.run(name, dev)
+
+
+def _probe_inputs(dev):
+    ins = {n: cuda_probe.inputs(n, dev) for n in cuda_probe.BATTERY}
+    return ins, {n: cuda_probe.plain(n, *pair) for n, pair in ins.items()}
+
+
+def test_probe_battery(dev):
+    """The kernel probes in one launch: the battery's counter moves by one
+    and the per-probe entry's not at all; every output bit-equal to its
+    plain version."""
+    ins, want = _probe_inputs(dev)
+    before = (cuda_probe.battery.launches, cuda_probe.probe.launches)
+    got = cuda_probe.battery(ins)
+    assert (cuda_probe.battery.launches, cuda_probe.probe.launches) == (
+        before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    assert list(got) == list(cuda_probe.BATTERY)
+    assert cuda_probe.mismatches(got, want) == []
+    cuda_probe.run_battery(dev)
+
+
+@pytest.mark.parametrize("name", cuda_probe.BATTERY)
+def test_probe_battery_names_a_changed_input(dev, name):
+    """One probe's input changed in the battery: only its output differs
+    from the plain versions of the unchanged inputs, so a mismatch names
+    its probe."""
+    ins, want = _probe_inputs(dev)
+    in0, in1 = ins[name]
+    changed = in0.clone()
+    changed.view(-1)[5] ^= 1
+    ins[name] = (changed, in1)
+    got = cuda_probe.battery(ins)
+    torch.cuda.synchronize()
+    assert cuda_probe.mismatches(got, want) == [name]

@@ -39,6 +39,7 @@ assert fr.batch_from_limbs(fr.mul(a, a)) == [9, 25]
 assert fr.batch_from_limbs(cuda_field.mul_chain(a, a[:, :1], 2)) == [27, 45]
 assert cuda_loop.loop("modmul_mont32", a, a, 1).shape == (16, 2)
 cuda_probe.run("mma_s8", "cpu")
+cuda_probe.run_battery("cpu")
 assert sha2.sha256_chunks(bn.to_tensor(sha2.bytes_to_words32(
     sha2.pad_message(b"abc", 512))[:, None], "cpu")).shape == (8, 1)
 assert fr.batch_from_limbs(pos.poseidon([a])) == [pref.poseidon([3]), pref.poseidon([5])]
