@@ -24,7 +24,17 @@ launch counter set to 0 just before it and read just after:
   chained products a call: K6, K7, K8;
 * the probe battery: tools/probe_nvcc: K9, each probe alone in a launch of
   its own (the entry probe), then the kernel probes together in one launch
-  (the entry probe_battery).
+  (the entry probe_battery);
+* RegisterIdentityLight: register_identity_light.forward on TD3 dg1 at
+  batch 1024 with SHA-256 (K1's per-message entry, K3, K5's affine entry),
+  and at batch 64 with SHA-384 (plain SHA-384; K3, K5);
+* QueryIdentity: query_identity.forward at batch 1024, TD3 and TD1, on
+  80-level identity-state proofs of 18-24 live levels a lane (one lane
+  none, one 79), with four tampered lanes: K3, K4 (the climb, with live
+  levels) and K5's affine entry;
+* the register -> query chain: a TD3 query (nullifier only) of the
+  flagship step's own identities, their identity state built from the
+  step's outputs: K3, K4, K5's affine entry.
 
 The script
 
@@ -36,7 +46,7 @@ The script
    (tolerance 0: integer arithmetic) against its plain PyTorch version on
    the same CUDA tensors, and on 8+ lanes against the Python-int oracles;
    times both, and computes the kernel's bound from this run's shapes and
-   data (K4: the live levels of three depth profiles), and the
+   data (K4: the live levels of four depth profiles), and the
    critical-path floor of K1 (a lane's rounds), K6 (a lane's two team
    products) and K8 (n steps of one chain); K1's one launch beside its
    four-call route and its per-message entry at the RSA-PSS path's shapes
@@ -64,6 +74,13 @@ The script
    (RSA-3072) with e = 37187 against its plain version; the profiler's
    session counts the CUDA kernels of one forward of each path, with the
    device time of each hand-written kernel in it;
+   then the Light, Query and chain paths: the outputs against the oracles
+   on sampled lanes (ingest/identity; identity-state roots built in the
+   pool), each tampered query lane failing exactly its own check, every
+   other check holding, the launch counters, one warm forward of each
+   timed (mean of 3); the profiler's session also counts the CUDA kernels
+   of one forward of Light and of each Query, and K4's device time on the
+   query's proofs beside its flagship and registry profiles and its bound;
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
@@ -75,6 +92,7 @@ The script
 Any failed check raises, and the script exits non-zero.
 """
 
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -86,10 +104,12 @@ import time
 import numpy as np
 import torch
 
-from passport_zk_circuits_tpu_torch.ingest import builder, synthetic
+from passport_zk_circuits_tpu_torch.ingest import builder, identity, synthetic
 from passport_zk_circuits_tpu_torch.models import params
 from passport_zk_circuits_tpu_torch.models import passport_verification as pv
+from passport_zk_circuits_tpu_torch.models import query_identity as qi
 from passport_zk_circuits_tpu_torch.models import register_identity as ri
+from passport_zk_circuits_tpu_torch.models import register_identity_light as ril
 from passport_zk_circuits_tpu_torch.ops import babyjubjub as bjj
 from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_babyjubjub
@@ -110,6 +130,7 @@ from passport_zk_circuits_tpu_torch.tools import probe_nvcc
 from passport_zk_circuits_tpu_torch.utils import babyjubjub_ref as bref
 from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 from passport_zk_circuits_tpu_torch.utils import profiling
+from passport_zk_circuits_tpu_torch.utils.constants.countries import COUNTRIES
 
 FLAGSHIP = "registerIdentity_1_256_3_4_600_248_1_1496_3_256"
 ECDSA_PATH = "registerIdentity_21_256_3_4_600_248_20_1496_3_256"
@@ -760,18 +781,13 @@ def phase_poseidon(dev, rng):
     return entry
 
 
-def smt_path_root(key, value, siblings):
-    """Python-int root of a one-proof SMT path (siblings[0] root-most)."""
-    node = pref.poseidon([key, value, 1])
-    last = max((i for i, s in enumerate(siblings) if s), default=-1)
-    for i in range(last, -1, -1):
-        pair = [siblings[i], node] if (key >> i) & 1 else [node, siblings[i]]
-        node = pref.poseidon(pair)
-    return node
-
-
 SMT_LEVELS = 80
-SMT_PLAIN_LANES = 128       # the full-depth profile's plain run: a slice
+SMT_PLAIN_LANES = 128       # the deep profiles' plain runs: a slice
+# identity-state paths: a uniform-key SMT of about 2^20 identities puts a
+# leaf near depth log2 N, about 20 (an estimate, not a registry figure), so
+# each lane draws its live levels from 18..24 (the query's lane 2 holds
+# none, its lane 3 79)
+LIVE_LEVELS = (18, 24)
 
 
 def smt_bound(args):
@@ -797,13 +813,15 @@ def smt_case(dev, keys_t, vals_t, sib_cols):
 
 
 def phase_smt(dev, rng):
-    """The 80-level climb at B = 1024 in three depth profiles: mixed (most
+    """The 80-level climb at B = 1024 in four depth profiles: mixed (most
     lanes with all-zero siblings as on the flagship, every eighth lane
     with non-zero siblings down to depths of up to 24; the JSON entry),
-    flagship (all zero: no live level) and full (every sibling but the
-    topmost, which a proof holds zero, non-zero: 79 live levels a lane,
-    the deepest level holding the leaf). The
-    full-depth plain version runs on the first 128 lanes."""
+    flagship (all zero: no live level), registry (every lane 18-24 live
+    levels, as the query's identity-state proofs but without their lane
+    of 79) and full (every sibling but the topmost, which a proof holds
+    zero, non-zero: 79 live levels a lane, the deepest level holding the
+    leaf). The registry and full-depth plain versions run on the first
+    128 lanes."""
     n = SMT_LEVELS
     keys, key_t = rand_fr(dev, rng)
     vals, val_t = rand_fr(dev, rng)
@@ -814,13 +832,16 @@ def phase_smt(dev, rng):
             sib_cols[lane][i] = rng.randrange(fr.P) if rng.random() < .8 else 0
     full_cols = [[rng.randrange(1, fr.P) for _ in range(n - 1)] + [0]
                  for _ in range(BATCH)]
+    registry_cols = [identity.live_siblings(
+        rng, rng.randrange(LIVE_LEVELS[0], LIVE_LEVELS[1] + 1), n)
+        for _ in range(BATCH)]
     cases = {"mixed": sib_cols, "flagship": [[0] * n] * BATCH,
-             "full": full_cols}
+             "registry": registry_cols, "full": full_cols}
     profiles = []
     for profile, cols in cases.items():
         args = smt_case(dev, key_t, val_t, cols)
         live, nbytes, int_ops = smt_bound(args)
-        m = SMT_PLAIN_LANES if profile == "full" else None
+        m = SMT_PLAIN_LANES if profile in ("registry", "full") else None
         sl = tuple(a[:, :m].contiguous() for a in args)
         outs, e = compare("smt_climb",
                           lambda: cuda_poseidon.smt_climb(*args),
@@ -837,10 +858,12 @@ def phase_smt(dev, rng):
         print(f"  smt_climb [{profile}]: {live} live (lane, level) pairs")
         lanes = [0, 1] + list(range(9, BATCH, BATCH // 8))  # 1 mod 8: deep
         got = fr.batch_from_limbs(outs[0][:, lanes])
-        want = [smt_path_root(keys[i], vals[i], cols[i]) for i in lanes]
+        want = [identity.smt_root(keys[i], vals[i], cols[i])
+                for i in lanes]
         check(got == want, f"smt_climb [{profile}] root != oracle")
     entry["shape"] = ("N=80 levels (+ the leaf's t=4 permutation), B=1024, "
-                      "the mixed profile; profiles: flagship, mixed, full")
+                      "the mixed profile; profiles: flagship, mixed, "
+                      "registry, full")
     entry["profiles"] = profiles
     return entry
 
@@ -1087,6 +1110,28 @@ def read_launches(names, entries, path, off_path=(), own=()):
             e["launches"] = launches[e["name"]]
 
 
+def sampled_lanes(n):
+    """The first 18 lanes (the tampered and edge ones among them) and 8
+    drawn from the rest."""
+    return sorted({*range(min(18, n)), *random.Random(SEED).sample(range(n),
+                                                                     8)})
+
+
+def run_path(path, entries, on, fn, off=(), own=()):
+    """fn() with every launch counter zeroed just before and read just
+    after (read_launches: on must launch, off must not); returns its
+    output."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    print(f"  {path} forward: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          "(first call)")
+    read_launches(on, entries, path, off_path=off, own=own)
+    return out
+
+
 def phase_slice(dev, rng, entries):
     p = params.CircuitParams.from_name(FLAGSHIP)
     t0 = time.perf_counter()
@@ -1094,15 +1139,9 @@ def phase_slice(dev, rng, entries):
     inp = builder.build_register_inputs(p, pps, dev)
     print(f"  inputs: {BATCH} passports built in "
           f"{time.perf_counter() - t0:.1f} s (host)")
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    out = ri.forward(p, inp)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    print(f"  forward: {first_s * 1e3:.1f} ms (first call)")
-    read_launches(WITNESS_KERNELS, entries, "the witness step",
-                  off_path=OFF_PATH, own=WITNESS_KERNELS + OFF_PATH)
+    out = run_path("the witness step", entries, WITNESS_KERNELS,
+                   lambda: ri.forward(p, inp), off=OFF_PATH,
+                   own=WITNESS_KERNELS + OFF_PATH)
     check(cuda_sha2.sha2_32_chunks_many.launches == 1,
           "the witness step did not hash its messages in one K1 launch")
 
@@ -1112,15 +1151,14 @@ def phase_slice(dev, rng, entries):
     check(flow[1] and not sig[1], "lane 1 (flipped signature) must fail sig")
     check(bool(flow[2:].all() and sig[2:].all()), "flow/sig not all true")
     check(bool(smt_ok.all()), "smt_ok not all true")
-    lanes = sorted({*range(min(18, BATCH)),
-                    *random.Random(SEED).sample(range(BATCH), 8)})
+    lanes = sampled_lanes(BATCH)
     for name in ("passport_hash", "dg1_commitment", "pk_identity_hash",
                  "dg15_pubkey_hash"):
         got = fr.batch_from_limbs(out[name][:, lanes])
         want = [synthetic.expected_outputs(p, pps[i])[name] for i in lanes]
         check(got == want, f"{name} != oracle on sampled lanes")
     print(f"  outputs equal the oracles on {len(lanes)} lanes; verdicts ok")
-    return p, inp
+    return p, pps, inp, out
 
 
 def _expected_chunk(name, pps):
@@ -1169,14 +1207,8 @@ def phase_algo_paths(dev, rng, entries, pool):
         inp = builder.build_register_inputs(p, pps, dev)
         print(f"  {path}: {BATCH} passports of {name} built in "
               f"{time.perf_counter() - t0:.1f} s (host)")
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        out = ri.forward(p, inp)
-        torch.cuda.synchronize()
-        print(f"  {path} forward: {(time.perf_counter() - t0) * 1e3:.1f} ms "
-              "(first call)")
-        read_launches(on, entries, path, off_path=off)
+        out = run_path(path, entries, on, lambda: ri.forward(p, inp),
+                       off=off)
         flow, sig, smt_ok = (out[k].cpu() for k in ("flow_ok", "sig_ok",
                                                     "smt_ok"))
         check(bool(flow.all() and smt_ok.all()),
@@ -1211,6 +1243,230 @@ def phase_algo_paths(dev, rng, entries, pool):
     entry["k192_e37187"] = {key: e192[key] for key in
                             ("ms", "plain_ms", "bound_ms", "bound_by")}
     return runs
+
+
+# -- RegisterIdentityLight and QueryIdentity ---------------------------------
+
+LIGHT_SMALL_BATCH = 64          # the plain SHA-384 route: a small batch
+LIGHT_ON = ("sha2_32_chunks", "poseidon_ex", "ladder_affine")
+LIGHT_OFF = ("sha2_32_chunks_many", "pow_mod", "smt_climb", "ladder")
+QUERY_ON = ("poseidon_ex", "smt_climb", "ladder_affine")
+QUERY_OFF = ("sha2_32_chunks", "sha2_32_chunks_many", "pow_mod", "ladder")
+# tampered query lanes -> the one check each must fail
+TAMPERED = {4: "identity_state", 5: "citizenship_not_blacklisted",
+            6: "expiration_lower", 7: "timestamp_upper"}
+
+
+def _light_oracles(dg1s, sks, doc, hash_type):
+    """Light's oracle outputs of some lanes (run in a pool's worker)."""
+    return [identity.expected_light_outputs(d, s, doc, hash_type)
+            for d, s in zip(dg1s, sks)]
+
+
+def _chain_roots(rows):
+    """Identity-state roots from the registration's outputs (run in a
+    pool's worker): rows of (pk_passport_hash, pk_identity_hash,
+    dg1_commitment, identity_counter, timestamp, siblings)."""
+    return [identity.smt_root(pref.poseidon([pkp, pkid]),
+                              identity.identity_value(commit, idc, ts), sibs)
+            for pkp, pkid, commit, idc, ts, sibs in rows]
+
+
+def pool_map(pool, fn, items, *args, chunk=32):
+    """fn over items in chunks on the pool, flattened, in order."""
+    parts = pool.starmap(fn, [(items[i:i + chunk], *args)
+                              for i in range(0, len(items), chunk)])
+    return [x for part in parts for x in part]
+
+
+def warm_ms(fn, reps=3):
+    """Mean host-clock ms of fn, each call fenced by a synchronize, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_light(dev, rng, entries, pool):
+    """register_identity_light.forward on TD3 dg1 at batch 1024 with
+    SHA-256 (K1's per-message entry, K3, K5's affine entry; no K2, K4 or
+    K1's many-message entry), and at batch 64 with SHA-384 (the plain
+    SHA-384 route: no K1 at all); the three outputs against the oracles on
+    sampled lanes (SHA-384: every lane). Returns {label: (fn, warm ms)}."""
+    runs = {}
+    for hash_type, batch in ((256, BATCH), (384, LIGHT_SMALL_BATCH)):
+        label = f"light TD3/SHA-{hash_type}"
+        dg1s = [identity.make_dg1(rng, 3) for _ in range(batch)]
+        sks = [rng.randrange(1, fr.P) for _ in range(batch)]
+        lanes = sampled_lanes(batch) if batch == BATCH else list(range(batch))
+        chunks = [lanes[k:k + 8] for k in range(0, len(lanes), 8)]
+        oracles = pool.starmap_async(_light_oracles, [
+            ([dg1s[i] for i in c], [sks[i] for i in c], 3, hash_type)
+            for c in chunks])
+        inp = identity.light_inputs(dg1s, sks, hash_type, dev)
+        on = LIGHT_ON if hash_type == 256 else LIGHT_ON[1:]
+        off = LIGHT_OFF if hash_type == 256 else LIGHT_OFF + LIGHT_ON[:1]
+        out = run_path(label, entries, on,
+                       lambda: ril.forward(inp, hash_type, 3), off=off)
+        if hash_type == 256:
+            check(cuda_sha2.sha2_32_chunks.launches == 1,
+                  "light: dg1's SHA-256 is not one K1 launch")
+        want = [o for part in oracles.get() for o in part]
+        for key in want[0]:
+            check(fr.batch_from_limbs(out[key][:, lanes]) ==
+                  [w[key] for w in want], f"{label}: {key} != oracle")
+        ms = warm_ms(lambda: ril.forward(inp, hash_type, 3))
+        print(f"  {label}: the three outputs equal the oracles on "
+              f"{len(lanes)} lanes; one warm forward {ms:.2f} ms (host "
+              f"clock, mean of 3), batch {batch}; card: {CARD['name']}")
+        runs[label] = (lambda inp=inp, h=hash_type: ril.forward(inp, h, 3),
+                       ms, batch)
+    return runs
+
+
+def query_lanes(rng, doc, n):
+    """n query lanes on MRZ dg1 of document type doc, each on a path of
+    18-24 live levels (lane 2: none, lane 3: 79), selector bits 0-15 (TD1:
+    0-17); the TAMPERED lanes each break one check."""
+    lanes = []
+    ukr = COUNTRIES.index(int.from_bytes(b"UKR", "big"))
+    for j in range(n):
+        n_live = {2: 0, 3: 79}.get(j, rng.randrange(LIVE_LEVELS[0],
+                                                     LIVE_LEVELS[1] + 1))
+        lane = identity.QueryLane(
+            dg1=identity.make_dg1(rng, doc,
+                                  expiry=b"240101" if j == 6 else b"301231"),
+            sk_identity=rng.randrange(1, fr.P),
+            pk_passport_hash=rng.randrange(fr.P), event_id=rng.randrange(fr.P),
+            event_data=rng.randrange(fr.P),
+            siblings=identity.live_siblings(rng, n_live, SMT_LEVELS),
+            selector=(1 << 16) - 1 if doc == 3 else (1 << 18) - 1)
+        if j == 5:
+            lane.citizenship_mask = 1 << (239 - ukr)
+        if j == 7:
+            lane.timestamp = lane.timestamp_upper
+        lanes.append(lane)
+    return lanes
+
+
+def check_verdicts(label, checks, broken):
+    """Each lane in broken fails exactly its check; every other check holds
+    on every lane. broken: {lane: check}; checks: {name: (B,) bool}."""
+    for name, ok in checks.items():
+        bad = sorted(int(i) for i in (~ok).nonzero().flatten().tolist())
+        want = sorted(lane for lane, c in broken.items() if c == name)
+        check(bad == want, f"{label}: check {name} fails on lanes {bad[:8]}, "
+              f"not {want}")
+
+
+def query_bound(inp):
+    """K4's bound on the query's identity-state proofs: smt_bound over the
+    top flags of its paths (the key's bits do not change the count)."""
+    args = smt.climb_inputs(torch.zeros_like(inp.id_state_root),
+                            inp.id_state_siblings)
+    live, nbytes, int_ops = smt_bound(args)
+    return live, *bound(nbytes, int_ops)
+
+
+def phase_query(dev, rng, entries, pool):
+    """query_identity.forward at batch 1024, TD3 and TD1, on 80-level
+    identity-state paths with live levels (roots built in the pool from
+    each lane's final inputs; the wrong-sk lane's from the right sk): the
+    tampered lanes fail exactly their checks, every other check holds,
+    the gated outputs equal the oracles on sampled lanes, and K3, K4 and
+    K5's affine entry launch (K1, K2 do not). Returns {label: (fn, warm
+    ms)}."""
+    runs = {}
+    for doc in (3, 1):
+        label = f"query TD{doc}"
+        t0 = time.perf_counter()
+        lanes = pool_map(pool, identity.with_roots,
+                         query_lanes(rng, doc, BATCH), doc)
+        lanes[4] = dataclasses.replace(
+            lanes[4], sk_identity=lanes[4].sk_identity + 1)
+        inp = identity.query_inputs(identity.query_arrays(lanes), dev)
+        live = [sum(1 for s in ln.siblings if s) for ln in lanes]
+        print(f"  {label}: {BATCH} lanes, identity-state roots built in "
+              f"{time.perf_counter() - t0:.1f} s (host, pool); live levels "
+              f"a lane {min(live[4:])}-{max(live[4:])}, lane 2 {live[2]}, "
+              f"lane 3 {live[3]}")
+        out, checks = run_path(label, entries, QUERY_ON,
+                               lambda: qi.forward(inp, doc, SMT_LEVELS),
+                               off=QUERY_OFF)
+        check(cuda_poseidon.smt_climb.launches == 1,
+              f"{label}: the identity-state climb is not one K4 launch")
+        check_verdicts(label, checks, TAMPERED)
+        lanes_s = sampled_lanes(BATCH)
+        got = {k: fr.batch_from_limbs(v[:, lanes_s]) for k, v in out.items()}
+        for i, j in enumerate(lanes_s):
+            check({k: v[i] for k, v in got.items()} ==
+                  identity.expected_query_outputs(lanes[j], doc),
+                  f"{label}: lane {j} outputs != oracle")
+        ms = warm_ms(lambda: qi.forward(inp, doc, SMT_LEVELS))
+        n_live, bound_ms, bound_by = query_bound(inp)
+        print(f"  {label}: tampered lanes fail exactly their checks, every "
+              f"other check holds; outputs equal the oracles on "
+              f"{len(lanes_s)} lanes; one warm forward {ms:.2f} ms (host "
+              f"clock, mean of 3), batch {BATCH}; K4 bound at its "
+              f"{n_live} live (lane, level) pairs {bound_ms:.6f} ms "
+              f"({bound_by}); card: {CARD['name']}")
+        e = next(e for e in entries if e["name"] == "smt_climb")
+        e.setdefault("query_paths", {})[label] = {
+            "live_pairs": n_live, "bound_ms": bound_ms,
+            "bound_by": bound_by, "live_levels_a_lane": list(LIVE_LEVELS)}
+        runs[label] = (lambda inp=inp, doc=doc: qi.forward(inp, doc,
+                                                            SMT_LEVELS),
+                       ms, BATCH)
+    return runs
+
+
+def phase_chain(dev, rng, entries, pool, pps, inp, out):
+    """The register -> query chain on the flagship step's own inputs and
+    outputs at batch 1024: the identity state from its dg15_pubkey_hash,
+    pk_identity_hash and dg1_commitment on paths of 18-24 live levels, then
+    a TD3 query of the same sk with only the nullifier (selector bit 0)
+    disclosed: identity_state holds on every lane, every gated check
+    holds, the other outputs are zero, and the nullifier equals the
+    oracle's on sampled lanes. citizenship_in_table and
+    citizenship_not_blacklisted are not gated by the selector and the
+    flagship's synthetic dg1 has no real citizenship, so neither is
+    asserted."""
+    pkp, pkid, commit = (fr.batch_from_limbs(out[k]) for k in (
+        "dg15_pubkey_hash", "pk_identity_hash", "dg1_commitment"))
+    sibs = [identity.live_siblings(rng, rng.randrange(LIVE_LEVELS[0],
+                                                      LIVE_LEVELS[1] + 1),
+                                   SMT_LEVELS) for _ in range(BATCH)]
+    base = identity.QueryLane(dg1=b"", sk_identity=0, pk_passport_hash=0,
+                              event_id=0, event_data=0, siblings=[])
+    idc, ts = base.identity_counter, base.timestamp
+    roots = pool_map(pool, _chain_roots, list(zip(
+        pkp, pkid, commit, [idc] * BATCH, [ts] * BATCH, sibs)))
+    sks = fr.batch_from_limbs(inp.sk_identity)
+    lanes = [dataclasses.replace(
+        base, dg1=pps[j]["dg1"], sk_identity=sks[j], pk_passport_hash=pkp[j],
+        event_id=rng.randrange(fr.P), event_data=rng.randrange(fr.P),
+        siblings=sibs[j], selector=1, root=roots[j]) for j in range(BATCH)]
+    qinp = identity.query_inputs(identity.query_arrays(lanes), dev)
+    check(torch.equal(qinp.sk_identity, inp.sk_identity),
+          "chain: the query's sk is not the registration's")
+    qout, checks = run_path("chain", entries, QUERY_ON,
+                            lambda: qi.forward(qinp, 3, SMT_LEVELS),
+                            off=QUERY_OFF)
+    check_verdicts("chain", {k: v for k, v in checks.items()
+                             if not k.startswith("citizenship")}, {})
+    for k, v in qout.items():
+        if k != "nullifier":
+            check(not v.any(), f"chain: {k} not gated to zero")
+    lanes_s = sampled_lanes(BATCH)
+    check(fr.batch_from_limbs(qout["nullifier"][:, lanes_s]) ==
+          [identity.expected_query_outputs(lanes[j], 3)["nullifier"]
+           for j in lanes_s], "chain: nullifier != oracle")
+    print(f"  chain: identity_state holds on all {BATCH} registered lanes; "
+          f"the nullifier equals the oracle on {len(lanes_s)} lanes")
 
 
 def stage_ms(p, inp, reps=3):
@@ -1317,6 +1573,29 @@ def card_rates(card):
           f"{HBM_BYTES_PER_S:.3g} B/s; card: {card}")
 
 
+def k4_at_depth(entries, prof):
+    """Print K4 alone in phase_smt's registry and flagship profiles, then
+    its device time on each query path's proofs (prof: device_profile's
+    result) beside its bound there, and record that time in the entry."""
+    k4 = next(e for e in entries if e["name"] == "smt_climb")
+    reg, flag = (next(r for r in k4["profiles"] if r["profile"] == name)
+                 for name in ("registry", "flagship"))
+    print(f"K4 alone, registry profile ({LIVE_LEVELS[0]}-{LIVE_LEVELS[1]} "
+          f"live levels every lane): {reg['ms']:.4f} ms (CUDA events), "
+          f"bound {reg['bound_ms']:.6f} ms ({reg['bound_by']}), "
+          f"{reg['live_pairs']} live pairs; flagship profile (none): "
+          f"{flag['ms']:.4f} ms; card: {CARD['name']}")
+    for label, q in k4["query_paths"].items():
+        q["device_us"] = prof[label]["by_kernel"]["smt_climb"][1]
+        print(f"K4 on {label}'s identity-state proofs ({LIVE_LEVELS[0]}-"
+              f"{LIVE_LEVELS[1]} live levels a lane, one lane 79: a warp "
+              f"climbs as deep as its deepest lane): {q['device_us']:.3f} "
+              f"us device, bound {q['bound_ms'] * 1e3:.3f} us "
+              f"({q['bound_by']}); on the witness step (no live level): "
+              f"{prof['witness step']['by_kernel']['smt_climb'][1]:.3f} us "
+              f"device; card: {CARD['name']}")
+
+
 def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1348,16 +1627,24 @@ def main():
         entries.extend(got if isinstance(got, list) else [got])
 
     print("phase slice")
-    p, inp = phase_slice(dev, rng, entries)
+    p, pps, inp, out = phase_slice(dev, rng, entries)
     print("phase algo_paths (ECDSA, RSA-PSS)")
     workers = max(1, min(8, (os.cpu_count() or 2) - 2))
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
         runs = phase_algo_paths(dev, rng, entries, pool)
+        print("phase light (RegisterIdentityLight)")
+        id_runs = phase_light(dev, rng, entries, pool)
+        print("phase query (QueryIdentity TD3 and TD1)")
+        id_runs.update(phase_query(dev, rng, entries, pool))
+        print("phase chain (register -> query on the flagship step)")
+        phase_chain(dev, rng, entries, pool, pps, inp, out)
     print("one forward of each path, then one call of each short kernel, "
           "under torch.profiler")
     forwards = [("witness step", lambda: ri.forward(p, inp))] + [
         (path, lambda q=q, x=x: ri.forward(q, x))
-        for path, (q, x, _) in runs.items()]
+        for path, (q, x, _) in runs.items()] + [
+        (label, fn) for label, (fn, _, batch) in id_runs.items()
+        if batch == BATCH]
     t0 = time.perf_counter()
     prof = device_profile(forwards)
     print(f"  the profiler's session and its events: "
@@ -1373,6 +1660,10 @@ def main():
             print(f"  {label}: {name} {n} launch(es), {us:.3f} us device")
             e = next(e for e in entries if e["name"] == name)
             e.setdefault("forward_device_us_by_path", {})[label] = us
+        if label in id_runs:
+            print(f"  {label}: one warm forward {id_runs[label][1]:.2f} ms "
+                  f"(host clock, mean of 3), batch {id_runs[label][2]}")
+    k4_at_depth(entries, prof)
     for name, ms in stage_ms(p, inp).items():
         print(f"  stage {name}: {ms:.2f} ms (mean of 3)")
     dt = chained_steps(p, inp)

@@ -57,12 +57,18 @@ def dg15_pubkey_hash(p: params.CircuitParams, dg15_words):
     return pos.poseidon([x, y])
 
 
+def dg1_chunks(dg1_words, document_type: int):
+    """The four reversed-bit dg1 chunks of the commitment: 186 bits each for
+    TD3, 190 for TD1."""
+    chunk_size = 186 if document_type == 3 else 190
+    return [bitops.word_slice_to_fr(dg1_words, i * chunk_size, chunk_size,
+                                    msb_first=False) for i in range(4)]
+
+
 def dg1_commitment(p: params.CircuitParams, dg1_words, sk_identity):
     """Poseidon5 of 4 reversed-bit dg1 chunks + Poseidon1(skIdentity)."""
-    chunk_size = 186 if p.document_type == 3 else 190
-    chunks = [bitops.word_slice_to_fr(dg1_words, i * chunk_size, chunk_size,
-                                      msb_first=False) for i in range(4)]
-    return pos.poseidon(chunks + [pos.poseidon([sk_identity])])
+    return pos.poseidon(dg1_chunks(dg1_words, p.document_type)
+                        + [pos.poseidon([sk_identity])])
 
 
 def pk_identity_hash(sk_identity):

@@ -19,16 +19,14 @@ from . import field as fr
 def _lev_ins(sib_is_zero):
     """SMTLevIns. sib_is_zero: (N, *B) bool -> levIns (N, *B) bool: set at
     the first level (from the root-most index 0) whose previous sibling is
-    the last non-zero one."""
-    N = sib_is_zero.shape[0]
-    lev = [None] * N
-    lev[N - 1] = ~sib_is_zero[N - 2]
-    done = lev[N - 1]
-    for i in range(N - 2, 0, -1):
-        lev[i] = ~done & ~sib_is_zero[i - 1]
-        done = done | lev[i]
-    lev[0] = ~done
-    return torch.stack(lev)
+    the last non-zero one. In closed form: lev[i] (i >= 1) is "sibling i-1
+    non-zero and siblings i..N-2 all zero", lev[0] is "siblings 0..N-2 all
+    zero"; the suffix test is a reverse cumulative product, so the whole
+    function is a handful of tensor ops at any depth."""
+    z = sib_is_zero[:-1]
+    ones = torch.ones_like(sib_is_zero[:1])
+    zero_from = torch.cat([z.flip(0).long().cumprod(0).flip(0).bool(), ones])
+    return zero_from & torch.cat([ones, ~z])
 
 
 def climb_inputs(key, siblings):

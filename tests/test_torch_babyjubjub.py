@@ -13,6 +13,8 @@ from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_babyjubjub
 from passport_zk_circuits_tpu_torch.ops import field as fr
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 rng = random.Random(6606)

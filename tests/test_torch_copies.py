@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's pure-Python modules
 (models/params, ops/curves, utils/poseidon_ref, babyjubjub_ref, rsa_keygen,
-ecdsa_ref) and of utils/constants/poseidon_bn254.npz and the six
-fixed_base_<curve>.npz tables equal the originals: the registries field by
+ecdsa_ref, utils/constants/countries) and of
+utils/constants/poseidon_bn254.npz and the six fixed_base_<curve>.npz
+tables equal the originals: the registries field by
 field, the constants file by file and array by array, the oracles on
 seeded inputs."""
 
@@ -18,6 +19,7 @@ from passport_zk_circuits_tpu.utils import babyjubjub_ref as jbref
 from passport_zk_circuits_tpu.utils import ecdsa_ref as jecdsa_ref
 from passport_zk_circuits_tpu.utils import poseidon_ref as jpref
 from passport_zk_circuits_tpu.utils import rsa_keygen as jkeygen
+from passport_zk_circuits_tpu.utils.constants import countries as jcountries
 from passport_zk_circuits_tpu_torch.models import params
 from passport_zk_circuits_tpu_torch.ops import curves
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
@@ -26,6 +28,9 @@ from passport_zk_circuits_tpu_torch.utils import babyjubjub_ref as bref
 from passport_zk_circuits_tpu_torch.utils import ecdsa_ref
 from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 from passport_zk_circuits_tpu_torch.utils import rsa_keygen
+from passport_zk_circuits_tpu_torch.utils.constants import countries
+
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_CONST = ROOT / "passport_zk_circuits_tpu" / "utils" / "constants"
@@ -114,3 +119,9 @@ def test_ecdsa_oracle_equal():
         assert jecdsa_ref.verify(jcv, key[1], digest, *sig) is True
         assert ecdsa_ref.verify(cv, key[1], digest, sig[0], sig[1] ^ 1) == \
             jecdsa_ref.verify(jcv, key[1], digest, sig[0], sig[1] ^ 1)
+
+
+def test_countries_table_equal_entry_by_entry():
+    assert countries.COUNTRIES == jcountries.COUNTRIES
+    assert len(countries.COUNTRIES) == 240
+    assert len(set(countries.COUNTRIES)) == 240

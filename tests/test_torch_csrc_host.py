@@ -41,6 +41,8 @@ from passport_zk_circuits_tpu_torch.ops import smt
 from passport_zk_circuits_tpu.utils import babyjubjub_ref as bref
 from passport_zk_circuits_tpu.utils import poseidon_ref as pref
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

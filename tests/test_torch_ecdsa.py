@@ -26,6 +26,8 @@ from passport_zk_circuits_tpu_torch.ops.curves import CURVES
 from passport_zk_circuits_tpu_torch.tools import count_ops
 from passport_zk_circuits_tpu_torch.utils import ecdsa_ref as ref
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 rng = random.Random(6406)

@@ -18,6 +18,8 @@ from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_field
 from passport_zk_circuits_tpu_torch.ops import field as fr
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 rng = random.Random(2602)
 B = 8
 EDGES = [0, 1, fr.P - 1, fr.P, (1 << 256) - 1]

@@ -18,6 +18,8 @@ import torch
 from passport_zk_circuits_tpu.ops import pallas_field as pf
 from passport_zk_circuits_tpu_torch.ops import cuda_loop
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 B = 8
 N = 3
 

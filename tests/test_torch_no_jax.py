@@ -59,6 +59,12 @@ ok = ecdsa.verify(cv.name, lim(q[0]), lim(q[1]), torch.cat([lim(r), lim(s)]),
 assert ok.tolist() == [True]
 assert wst.fixed_base_table("p256", torch.device("cpu"))[0].shape == (32, 16, 256)
 assert rsapss.emsa_pss_encode(bytes(32), 1024, bytes(32)) > 0
+from passport_zk_circuits_tpu_torch.ops import dates
+from passport_zk_circuits_tpu_torch.models import query_identity, register_identity_light
+from passport_zk_circuits_tpu_torch.utils.constants.countries import COUNTRIES
+enc = bn.to_tensor(fr.batch_to_limbs([int.from_bytes(b"900115", "big")]), "cpu")
+assert [int(x) for x in dates.decode(enc)] == [15, 1, 90, 1]
+assert len(COUNTRIES) == 240
 bad = [m for m, v in sys.modules.items() if v is not None and
        (m.split(".")[0] in ("jax", "passport_zk_circuits_tpu"))]
 assert not bad, bad

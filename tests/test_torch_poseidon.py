@@ -20,6 +20,8 @@ from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
 from passport_zk_circuits_tpu_torch.ops import field as fr
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 rng = random.Random(4404)

@@ -10,6 +10,8 @@ from passport_zk_circuits_tpu.utils import profiling as jprof
 from passport_zk_circuits_tpu_torch.models import params
 from passport_zk_circuits_tpu_torch.utils import profiling
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 NAMES = [f"registerIdentity_{sig}_256_3_4_600_248_{aa}_1496_3_256"
          for sig in sorted(jparams.SIG_ALGOS) for aa in (0, 1, 20)]
 

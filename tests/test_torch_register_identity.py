@@ -20,6 +20,8 @@ from passport_zk_circuits_tpu_torch.ingest import builder, convert, synthetic
 from passport_zk_circuits_tpu_torch.models import register_identity as ri
 from passport_zk_circuits_tpu_torch.ops import field as fr
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / \

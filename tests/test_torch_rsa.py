@@ -18,6 +18,8 @@ from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_rsa
 from passport_zk_circuits_tpu_torch.ops import rsa
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 rng = random.Random(3303)

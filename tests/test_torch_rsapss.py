@@ -20,6 +20,8 @@ from passport_zk_circuits_tpu_torch.ops import rsapss
 from passport_zk_circuits_tpu_torch.ops import sha2
 from passport_zk_circuits_tpu_torch.utils import rsa_keygen
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 rng = random.Random(7707)

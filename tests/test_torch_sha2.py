@@ -21,6 +21,8 @@ from passport_zk_circuits_tpu_torch.ops import bitops
 from passport_zk_circuits_tpu_torch.ops import cuda_sha2
 from passport_zk_circuits_tpu_torch.ops import sha2
 
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 rng = random.Random(2202)

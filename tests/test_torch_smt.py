@@ -8,6 +8,7 @@ level state machine.
 import random
 
 import numpy as np
+import pytest
 import torch
 
 from passport_zk_circuits_tpu.ops import field as jfr
@@ -17,6 +18,8 @@ from passport_zk_circuits_tpu_torch.ops import bignum as bn
 from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
 from passport_zk_circuits_tpu_torch.ops import field as fr
 from passport_zk_circuits_tpu_torch.ops import smt
+
+from jax_xla_route import jax_xla_route  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -90,3 +93,44 @@ def test_climb_skips_only_levels_off_the_top_path():
     assert args[2].sum(1).nonzero().numel() == 6       # levels on top path
     computed = cuda_poseidon.smt_climb_plain(*args, _t(key), _t(val))
     assert fr.batch_from_limbs(computed) == jfr.batch_from_limbs(root)
+
+
+def _lev_ins_loop(sib_is_zero):
+    """SMTLevIns as the JAX package computes it (ops/smt.py), level by
+    level from the deepest: the closed form's reference."""
+    N = sib_is_zero.shape[0]
+    lev = [None] * N
+    lev[N - 1] = ~sib_is_zero[N - 2]
+    done = lev[N - 1]
+    for i in range(N - 2, 0, -1):
+        lev[i] = ~done & ~sib_is_zero[i - 1]
+        done = done | lev[i]
+    lev[0] = ~done
+    return torch.stack(lev)
+
+
+def _zero_pattern(kind, n, batch, g):
+    """(n, batch) bool sibling-is-zero patterns; live-prefix lanes have
+    non-zero siblings at levels 0..L-1 for L from 0 to n."""
+    if kind == "all_zero":
+        return torch.ones((n, batch), dtype=torch.bool)
+    if kind == "all_nonzero":
+        return torch.zeros((n, batch), dtype=torch.bool)
+    if kind == "random":
+        return torch.rand((n, batch), generator=g) < 0.5
+    depth = torch.arange(n + 1).repeat(batch // (n + 1) + 1)[:batch]
+    return torch.arange(n).unsqueeze(1) >= depth.unsqueeze(0)
+
+
+@pytest.mark.parametrize("n", [2, 3, 80])
+@pytest.mark.parametrize("kind", ["all_zero", "all_nonzero", "random",
+                                  "live_prefix"])
+def test_lev_ins_closed_form_matches_the_loop(kind, n):
+    g = torch.Generator().manual_seed(n)
+    z = _zero_pattern(kind, n, 200, g)
+    got = smt._lev_ins(z)
+    assert torch.equal(got, _lev_ins_loop(z))
+    assert (got.sum(0) == 1).all()          # exactly one level a lane
+    # and on a batch of two axes
+    z3 = z.reshape(n, 8, 25)
+    assert torch.equal(smt._lev_ins(z3), _lev_ins_loop(z3))

@@ -6,7 +6,7 @@ what the port is held against: inputs at batch 2, built by the JAX
 package's synthetic generator and builder from a fixed seed, and every
 output of ``register_identity.forward``.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos|query]
 
 - ``tests/fixtures/torch_port_flagship_b2.npz``: the flagship config. Keys
   ``seed``, ``in_<PassportInputs field>``, ``in_sk_identity`` and
@@ -17,7 +17,18 @@ output of ``register_identity.forward``.
   secp192r1). Key ``configs`` lists the config names; each config's
   arrays carry the prefix ``c<SIG_ALGO>_`` before the keys above.
 
-With no argument both files are written.
+- ``tests/fixtures/torch_port_query_b2.npz``: RegisterIdentityLight at
+  TD3/SHA-256, TD3/SHA-384 and TD1/SHA-256 (key prefix
+  ``light_td<doc>_<hash>_``; ``in_dg1_words``, ``in_sk_identity``,
+  ``out_<output>``) and QueryIdentity at TD3 and TD1 with an 80-level
+  identity-state path (prefix ``query_td<doc>_``; ``in_<QueryInputs
+  field>``, ``out_<output>``, ``check_<check>``). The query inputs come
+  from the port's ``ingest/identity`` (MRZ-layout dg1): lane 0 a valid
+  witness whose path has 6 live levels, lane 1 one of 3 live levels with
+  one check broken (TD3: its sk off by one, the root made from the right
+  sk; TD1: its citizenship blacklisted in the mask).
+
+With no argument all three files are written.
 """
 
 import os
@@ -46,6 +57,9 @@ ALGOS = (
 )
 ALGOS_SEED = 20246
 ALGOS_OUT = ROOT / "tests" / "fixtures" / "torch_port_algos_b2.npz"
+QUERY_SEED = 20249
+QUERY_OUT = ROOT / "tests" / "fixtures" / "torch_port_query_b2.npz"
+LIGHT_CONFIGS = ((3, 256), (3, 384), (1, 256))      # (document type, hash)
 
 
 def tag(name: str) -> str:
@@ -82,13 +96,70 @@ def jax_arrays(name: str, seed: int) -> dict:
     return arrays
 
 
+def query_arrays(seed: int) -> dict:
+    """Light and query inputs at batch 2 from the port's ingest/identity,
+    and the JAX forwards' outputs and checks on them."""
+    import dataclasses
+
+    import jax
+    from passport_zk_circuits_tpu.models import query_identity as qi
+    from passport_zk_circuits_tpu.models import register_identity_light as ril
+    from passport_zk_circuits_tpu_torch.ingest import identity
+    from passport_zk_circuits_tpu_torch.ops.field import P
+    from passport_zk_circuits_tpu_torch.utils.constants.countries import \
+        COUNTRIES
+
+    rng = random.Random(seed)
+    arrays = {"seed": np.array(seed)}
+    for doc, h in LIGHT_CONFIGS:
+        dg1s = [identity.make_dg1(rng, doc) for _ in range(BATCH)]
+        sks = [rng.randrange(1, P) for _ in range(BATCH)]
+        li = identity.light_inputs(dg1s, sks, h, "cpu")
+        inp = ril.LightInputs(*(t.numpy().astype(np.uint32) for t in li))
+        out = jax.jit(lambda i, h=h, doc=doc: ril.forward(i, h, doc))(inp)
+        tag = f"light_td{doc}_{h}_"
+        for f in ril.LightInputs._fields:
+            arrays[f"{tag}in_{f}"] = np.asarray(getattr(inp, f))
+        for k, v in out.items():
+            arrays[f"{tag}out_{k}"] = np.asarray(v)
+        print(f"light TD{doc}/SHA-{h}: done", flush=True)
+    for doc in (3, 1):
+        lanes = [identity.QueryLane(
+            dg1=identity.make_dg1(rng, doc), sk_identity=rng.randrange(1, P),
+            pk_passport_hash=rng.randrange(P), event_id=rng.randrange(P),
+            event_data=rng.randrange(P),
+            siblings=identity.live_siblings(rng, n_live),
+            selector=(1 << 16) - 1 if doc == 3 else (1 << 18) - 1,
+            timestamp=1716482295 + j, identity_counter=3 + j)
+            for j, n_live in enumerate((6, 3))]
+        if doc == 1:
+            idx = COUNTRIES.index(int.from_bytes(b"UKR", "big"))
+            lanes[1].citizenship_mask = 1 << (239 - idx)
+        lanes = identity.with_roots(lanes, doc)
+        if doc == 3:
+            lanes[1] = dataclasses.replace(
+                lanes[1], sk_identity=lanes[1].sk_identity + 1)
+        np_inp = identity.query_arrays(lanes)
+        inp = qi.QueryInputs(**np_inp)
+        out, checks = jax.jit(lambda i, doc=doc: qi.forward(i, doc, 80))(inp)
+        tag = f"query_td{doc}_"
+        for f in qi.QueryInputs._fields:
+            arrays[f"{tag}in_{f}"] = np_inp[f]
+        for k, v in out.items():
+            arrays[f"{tag}out_{k}"] = np.asarray(v)
+        for k, v in checks.items():
+            arrays[f"{tag}check_{k}"] = np.asarray(v)
+        print(f"query TD{doc}: done", flush=True)
+    return arrays
+
+
 def save(path: pathlib.Path, arrays: dict) -> None:
     os.makedirs(path.parent, exist_ok=True)
     np.savez_compressed(path, **arrays)
     print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
-def main(which=("flagship", "algos")):
+def main(which=("flagship", "algos", "query")):
     import jax
     jax.config.update("jax_platforms", "cpu")
     if "flagship" in which:
@@ -100,7 +171,9 @@ def main(which=("flagship", "algos")):
                 arrays[tag(name) + k] = v
             print(f"{name}: done", flush=True)
         save(ALGOS_OUT, arrays)
+    if "query" in which:
+        save(QUERY_OUT, query_arrays(QUERY_SEED))
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("flagship", "algos"))
+    main(tuple(sys.argv[1:]) or ("flagship", "algos", "query"))
