@@ -34,7 +34,12 @@ launch counter set to 0 just before it and read just after:
   levels) and K5's affine entry;
 * the register -> query chain: a TD3 query (nullifier only) of the
   flagship step's own identities, their identity state built from the
-  step's outputs: K3, K4, K5's affine entry.
+  step's outputs: K3, K4, K5's affine entry;
+* Groth16 on RegisterIdentityLight at its real size (55,438 wires,
+  55,805 constraints, domain 65,536), batch 2: the Light forward on the
+  card (K1's per-message entry, K3, K5's affine entry) gives the public
+  values; r1cs.check_batched, groth16.setup, prove and verify (plain
+  PyTorch: no hand-written kernel on the prover).
 
 The script
 
@@ -81,6 +86,16 @@ The script
    timed (mean of 3); the profiler's session also counts the CUDA kernels
    of one forward of Light and of each Query, and K4's device time on the
    query's proofs beside its flagship and registry profiles and its bound;
+   then phase prove: the Light circuit built from the card's forward
+   inputs at batch 2 (its size and its public values against the
+   forward's), check_batched (both lanes true; a tampered wire of lane 0
+   fails exactly the rows whose Python-int value it breaks), setup timed
+   by part, the device G1 and G2 MSMs against the host's ints on strided
+   samples of 512 and 12,289 G1 points (the second in two window groups
+   of unequal size) and 64 G2 points, two proves timed by stage that must
+   be equal, verify in the pool (both lanes true, a wrong input false), the
+   phase under 300 s; the profiler's session holds one warm G1 MSM
+   (CUDA kernels, device time, idle share);
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
@@ -104,6 +119,9 @@ import time
 import numpy as np
 import torch
 
+from passport_zk_circuits_tpu_torch.circuit import register_light
+from passport_zk_circuits_tpu_torch.groth16 import pairing as g16pr
+from passport_zk_circuits_tpu_torch.groth16 import protocol as g16p
 from passport_zk_circuits_tpu_torch.ingest import builder, identity, synthetic
 from passport_zk_circuits_tpu_torch.models import params
 from passport_zk_circuits_tpu_torch.models import passport_verification as pv
@@ -121,10 +139,13 @@ from passport_zk_circuits_tpu_torch.ops import cuda_probe
 from passport_zk_circuits_tpu_torch.ops import cuda_rsa
 from passport_zk_circuits_tpu_torch.ops import cuda_sha2
 from passport_zk_circuits_tpu_torch.ops import field as fr
+from passport_zk_circuits_tpu_torch.ops import g2
+from passport_zk_circuits_tpu_torch.ops import msm
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
 from passport_zk_circuits_tpu_torch.ops import rsa
 from passport_zk_circuits_tpu_torch.ops import sha2
 from passport_zk_circuits_tpu_torch.ops import smt
+from passport_zk_circuits_tpu_torch.r1cs import system as r1
 from passport_zk_circuits_tpu_torch.tools import microbench_field
 from passport_zk_circuits_tpu_torch.tools import probe_nvcc
 from passport_zk_circuits_tpu_torch.utils import babyjubjub_ref as bref
@@ -1469,6 +1490,199 @@ def phase_chain(dev, rng, entries, pool, pps, inp, out):
           f"the nullifier equals the oracle on {len(lanes_s)} lanes")
 
 
+PROVE_BATCH = 2
+PROVE_SETUP_SEED = 5            # tools/prove_light_tpu.py's setup seed
+PROVE_SEED = 1
+LIGHT_OUTS = ("dg1_commitment", "pk_identity_hash", "dg1_hash")
+# RegisterIdentityLight's R1CS: wires, constraints, QAP domain
+LIGHT_R1CS = (55438, 55805, 65536)
+# (query, points) vs host ints; 12,289 G1 points at B = 2 need two window
+# groups (42 + 22 windows), each halved once with an odd point carried
+MSM_SAMPLES = (("a", 512), ("a", 12289), ("b2", 64))
+PROVE_STAGES = ("h", "msm_a", "msm_b1", "msm_k", "msm_h", "g1_chain",
+                "msm_b2")
+SETUP_PARTS = ("qap", "a_query", "b1_query", "k_query", "h_query",
+               "b2_query", "rest")
+
+
+def _rows_failing(cs, w_ints, rows):
+    """The rows of cs among rows whose Python-int A w * B w != C w."""
+    acc = {r: [0, 0, 0] for r in rows}
+    for m, mat in enumerate((cs.a, cs.b, cs.c)):
+        for row, col, coeff in mat:
+            if row in acc:
+                acc[row][m] = (acc[row][m] + coeff * w_ints[col]) % fr.P
+    return {r for r, (a, b, c) in acc.items() if a * b % fr.P != c}
+
+
+def _host_msm(pool, query, scalars, g2f):
+    """protocol._msm_lanes_host over the pool, the points in 16 chunks;
+    the chunks' per-lane sums added on the host."""
+    n, nb = query.shape[-1], scalars.shape[1]
+    step = -(-n // 16)
+    parts = pool.starmap(g16p._msm_lanes_host, [
+        (query[..., lo:lo + step], scalars[..., lo:lo + step], nb, g2f)
+        for lo in range(0, n, step)])
+    add = g16pr.ec_add if g2f else g16p._g1_add_int
+    out = [None] * nb
+    for part in parts:
+        out = [add(a, b) for a, b in zip(out, part)]
+    return out
+
+
+def _g1_ints(x, y, lane):
+    x, y = x[:, lane], y[:, lane]
+    return None if not (x.any() or y.any()) else (bn.limbs_to_int(x),
+                                                  bn.limbs_to_int(y))
+
+
+def phase_prove(dev, rng, entries, pool):
+    """Groth16 on RegisterIdentityLight at its real size, batch 2, on the
+    card: the Light forward (K1's per-message entry, K3, K5's affine
+    entry), the circuit (55,438 wires, 55,805 constraints, domain 65,536)
+    whose public values must equal the forward's, check_batched (every
+    lane true; a tampered wire of lane 0 fails exactly the rows whose
+    Python-int value it breaks, lane 1 still passes), setup timed by part,
+    the device G1 and G2 MSMs against the host's ints on samples of
+    a_query (one of them in several window groups) and b2_query, two
+    proves (cold, warm) timed by stage that must
+    be equal, and verify (host pairing, in the pool): each lane true, a
+    public input plus one false. Returns {label: fn} of one warm G1 MSM
+    (a_query, both lanes) for the profiler's session."""
+    card = CARD["name"]
+    started = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dg1s = [identity.make_dg1(rng, 3) for _ in range(PROVE_BATCH)]
+    sks = [rng.randrange(1, fr.P) for _ in range(PROVE_BATCH)]
+    inp = identity.light_inputs(dg1s, sks, 256, dev)
+    out = run_path("prove: light TD3/SHA-256, B = 2", entries, LIGHT_ON,
+                   lambda: ril.forward(inp, 256, 3), off=LIGHT_OFF)
+
+    t0 = time.perf_counter()
+    b, outs = register_light.build(dg1s, sks)
+    pub = b.finalize([outs[k] for k in LIGHT_OUTS])
+    cs = b.cs
+    w_np = b.witness_matrix()
+    dom = 1 << (cs.n_constraints - 1).bit_length()
+    print(f"  light circuit: {cs.n_vars} wires, {cs.n_constraints} "
+          f"constraints, domain {dom}, nnz A {len(cs.a)} B {len(cs.b)} C "
+          f"{len(cs.c)}; built in {time.perf_counter() - t0:.1f} s (host)")
+    check((cs.n_vars, cs.n_constraints, dom) == LIGHT_R1CS,
+          f"light circuit is not {LIGHT_R1CS}")
+    check([fr.batch_from_limbs(out[k]) for k in LIGHT_OUTS] == pub,
+          "light circuit's public values != the card's Light forward")
+    print(f"  light circuit: its {b.n_public} public values equal the "
+          f"card's forward ({', '.join(LIGHT_OUTS)}) on both lanes")
+
+    w = bn.to_tensor(w_np, dev)
+    ok, per = r1.check_batched(cs, w)
+    check(ok.tolist() == [True] * PROVE_BATCH and bool(per.all()),
+          "check_batched: a lane fails on the good witness")
+    good = [bn.limbs_to_int(w_np[i, :, 0]) for i in range(cs.n_vars)]
+    want = set()
+    while not want:         # a private wire whose +1 breaks some row
+        wire = b.n_public + 1 + rng.randrange(cs.n_vars - b.n_public - 1)
+        lane0 = list(good)
+        lane0[wire] = (lane0[wire] + 1) % fr.P
+        reading = sorted({r for mat in (cs.a, cs.b, cs.c)
+                          for r, c, _ in mat if c == wire})
+        want = _rows_failing(cs, lane0, reading)
+    bad = w.clone()
+    bad[wire, :, 0] = bn.to_tensor(fr.to_limbs(lane0[wire]), dev)
+    t0 = time.perf_counter()
+    ok2, per2 = r1.check_batched(cs, bad)
+    torch.cuda.synchronize()
+    t_check = time.perf_counter() - t0
+    failing = set(torch.nonzero(~per2[:, 0]).flatten().tolist())
+    check(bool(want) and failing == want,
+          f"check_batched: wire {wire} broke rows {sorted(failing)}, not "
+          f"{sorted(want)}")
+    check(ok2.tolist() == [False, True] and bool(per2[:, 1].all()),
+          "check_batched: the untampered lane 1 fails")
+    print(f"  check_batched: both lanes true; wire {wire} (+1 on lane 0, "
+          f"read by {len(reading)} rows) fails exactly rows {sorted(want)} "
+          f"on lane 0, lane 1 true; {t_check:.3f} s a check (host clock); "
+          f"card: {card}")
+
+    setup_s = {}
+    t0 = time.perf_counter()
+    pk, vk = g16p.setup(cs, b.n_public, seed=PROVE_SETUP_SEED, device=dev,
+                        times=setup_s)
+    setup_total = time.perf_counter() - t0
+    print(f"  setup: {setup_total:.2f} s ("
+          + ", ".join(f"{k} {setup_s[k]:.2f}" for k in SETUP_PARTS)
+          + f" s; host clock, each part fenced); card: {card}")
+
+    scal = w.permute(1, 2, 0)                          # (16, B, n_vars)
+    most_groups = 0
+    for name, n in MSM_SAMPLES:
+        # every (n_vars // n)-th point: the dg1 bits' 0/1 scalars and the
+        # hashes' full-width ones
+        g2f = name == "b2"
+        curve = "bn254_g2" if g2f else "bn254_g1"
+        cut = slice(None, (cs.n_vars // n) * n, cs.n_vars // n)
+        nwin = scal.shape[0] * 16 // msm.WINDOW       # 4-bit digits
+        groups = -(-nwin // msm.window_group(curve, nwin, PROVE_BATCH, n))
+        most_groups = max(most_groups, 0 if g2f else groups)
+        qx, qy, inf = (t[..., cut] for t in pk.queries[name])
+        sc = scal[..., cut].masked_fill(inf, 0)
+        t0 = time.perf_counter()
+        x, y = msm.msm_affine(qx, qy, sc, curve)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        got = [g2.limbs_to_point(x[..., i], y[..., i]) if g2f
+               else _g1_ints(x, y, i) for i in range(PROVE_BATCH)]
+        t0 = time.perf_counter()
+        want = _host_msm(pool, getattr(pk, f"{name}_query")[..., cut],
+                         sc.cpu().numpy(), g2f)
+        check(got == want, f"device {name} MSM on {n} points != host ints")
+        print(f"  MSM {'G2' if g2f else 'G1'} on {n} points of {name}_query "
+              f"(every {cut.step}th, {groups} window group"
+              f"{'s' if groups > 1 else ''}), both lanes: device equals host "
+              f"ints (device {t_dev:.2f} s, host "
+              f"{time.perf_counter() - t0:.2f} s in the pool)")
+    check(most_groups > 1, "no G1 MSM sample ran in several window groups")
+
+    proofs, prove_s = [], []
+    for label in ("cold", "warm"):
+        st = {}
+        t0 = time.perf_counter()
+        proofs.append(g16p.prove(pk, cs, w, seed=PROVE_SEED, times=st))
+        prove_s.append((time.perf_counter() - t0, st))
+        print(f"  prove ({label}, B = {PROVE_BATCH}): "
+              f"{prove_s[-1][0]:.2f} s ("
+              + ", ".join(f"{k} {st[k]:.2f}" for k in PROVE_STAGES)
+              + f" s; host clock, each stage fenced); card: {card}")
+    check(all(p.a == q.a and p.c == q.c and p.b == q.b
+              for p, q in zip(*proofs)), "the cold and warm proofs differ")
+    pubs = [[pub[j][lane] for j in range(b.n_public)]
+            for lane in range(PROVE_BATCH)]
+    wrong = [(pubs[0][0] + 1) % fr.P] + pubs[0][1:]
+    t0 = time.perf_counter()
+    verdicts = pool.starmap(g16p.verify, [(vk, proofs[1][lane], pubs[lane])
+                                          for lane in range(PROVE_BATCH)]
+                            + [(vk, proofs[1][0], wrong)])
+    t_verify = time.perf_counter() - t0
+    check(verdicts == [True] * PROVE_BATCH + [False],
+          f"verify: {verdicts}, not both lanes true and the wrong input "
+          "false")
+    print(f"  verify: both lanes true, lane 0 with a public input plus one "
+          f"false; {t_verify:.2f} s for the three in the pool (host); the "
+          "cold and warm proofs are equal")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    total = time.perf_counter() - started
+    print(f"groth16 light B = {PROVE_BATCH}: setup {setup_total:.2f} s, "
+          f"prove cold {prove_s[0][0]:.2f} s, warm {prove_s[1][0]:.2f} s, "
+          f"verify {t_verify:.2f} s (3 proofs, pool); peak device memory "
+          f"{peak:.2f} GiB; phase {total:.1f} s; card: {card}")
+    check(total < 300, f"phase prove took {total:.1f} s, not under 300")
+    qx, qy, inf = pk.queries["a"]
+    sc = scal.masked_fill(inf, 0)
+    return {f"prove: one warm G1 MSM (a_query, {cs.n_vars} points, "
+            f"B = {PROVE_BATCH})": lambda: msm.msm_affine(qx, qy, sc)}
+
+
 def stage_ms(p, inp, reps=3):
     """Mean ms of each stage of the witness step called alone on the
     flagship inputs through its public function, host clock around work
@@ -1638,13 +1852,15 @@ def main():
         id_runs.update(phase_query(dev, rng, entries, pool))
         print("phase chain (register -> query on the flagship step)")
         phase_chain(dev, rng, entries, pool, pps, inp, out)
+        print("phase prove (Groth16 on RegisterIdentityLight, B = 2)")
+        prove_runs = phase_prove(dev, rng, entries, pool)
     print("one forward of each path, then one call of each short kernel, "
           "under torch.profiler")
     forwards = [("witness step", lambda: ri.forward(p, inp))] + [
         (path, lambda q=q, x=x: ri.forward(q, x))
         for path, (q, x, _) in runs.items()] + [
         (label, fn) for label, (fn, _, batch) in id_runs.items()
-        if batch == BATCH]
+        if batch == BATCH] + list(prove_runs.items())
     t0 = time.perf_counter()
     prof = device_profile(forwards)
     print(f"  the profiler's session and its events: "

@@ -291,20 +291,23 @@ def lt(a, b):
 # ---------------------------------------------------------------------------
 
 class StaticMod:
-    """Arithmetic mod m, b^k / 2 <= m < b^k, k <= 24.
+    """Arithmetic mod m, b^k / 8 <= m < b^k, k <= 24 (the BN254 fields,
+    just above 2^253, at k = 16 among them).
 
     A product is the (2k-1)-column convolution (columns < k 2^32) with its
     high columns folded onto the low k by the constants b^(k+i) mod m, so
-    V = T mod m with k limbs below 2^58; q = floor(V / m) < 2^43 estimated
-    in float64 (one low at most: R = V - q m lies in [0, 2m)); then R and
+    V = T mod m with k limbs below 2^58; q = floor(V / m) < 2^45 estimated
+    in float64 (relative error below 2^-48, so within 0.13 of V / m, and
+    0.25 below it: one low at most, and R = V - q m lies in [0, 2m)); q
+    takes three 16-bit digits; then R and
     R - m are normalized together, by a 16-bit digit split and one
     carry-lookahead, and the nonnegative one is kept. About 45 tensor ops,
     where ``mod_mul``'s Barrett reduction takes about 180. A sum or a
     difference takes about 23."""
 
     def __init__(self, m: int, k: int):
-        if not (1 << (W * k - 1)) <= m < (1 << (W * k)) or k > 24:
-            raise ValueError("StaticMod needs b^k / 2 <= m < b^k, k <= 24")
+        if not (1 << (W * k - 3)) <= m < (1 << (W * k)) or k > 24:
+            raise ValueError("StaticMod needs b^k / 8 <= m < b^k, k <= 24")
         self.m, self.k = m, k
         n = k + 2                       # limbs of V - q m and of R - m
         self.inv_m = 1.0 / float(m)

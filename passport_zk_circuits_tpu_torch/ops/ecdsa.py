@@ -25,7 +25,7 @@ def hash_bits_to_limbs(hash_bits, kn: int):
 
 def on_curve(c: wst.CurveCtx, x, y):
     """y^2 == x^3 + a*x + b."""
-    xx, yy, ax = c.mul(wst._st(x, y, x), wst._st(
+    xx, yy, ax = c.mul(c.stack(x, y, x), c.stack(
         x, y, c.const_like(c.curve.a, x).expand(x.shape))).unbind(1)
     rhs = c.add(c.mul(xx, x), c.add(ax, c.const_like(c.curve.b, x).expand(
         x.shape)))
@@ -45,7 +45,7 @@ def verify(curve_name: str, pk_x, pk_y, signature, hash_bits):
 
     # scalar-field (mod n) arithmetic
     s_inv = c.fn.inv(s)
-    u1, u2 = c.fn.mul(s_inv.unsqueeze(1), wst._st(c.fn.reduce(h), r)) \
+    u1, u2 = c.fn.mul(s_inv.unsqueeze(1), c.stack(c.fn.reduce(h), r)) \
         .unbind(1)
 
     R = wst.jac_add(c, wst.fixed_base_mul(c, u1),
@@ -59,4 +59,4 @@ def verify(curve_name: str, pk_x, pk_y, signature, hash_bits):
     p_l = bn.cached_const(c.curve.p, c.k, pk_x.device, pk_x.dim())
     ok = ok & bn.lt(pk_x, p_l) & bn.lt(pk_y, p_l)
     ok = ok & on_curve(c, pk_x, pk_y)
-    return ok & ~wst.is_inf(R)
+    return ok & ~wst.is_inf(c, R)

@@ -1,5 +1,6 @@
-"""Count the tensor ops that launch work in the plain modular arithmetic and
-in one ECDSA verify, and time the verify on the host clock.
+"""Count the tensor ops that launch work in the plain modular arithmetic,
+in the point formulas over BN254 G1 and G2 (the prover's MSMs are made of
+them), and in one ECDSA verify, and time the verify on the host clock.
 
     python -m passport_zk_circuits_tpu_torch.tools.count_ops [--device cpu]
         [--batch 4] [--curves p256,brainpoolP256r1]   # --curves "": none
@@ -26,6 +27,7 @@ import torch
 from ..ops import bignum as bn
 from ..ops import bitops
 from ..ops import ecdsa
+from ..ops import g2
 from ..ops import weierstrass as wst
 from ..ops.curves import CURVES
 from ..utils import ecdsa_ref
@@ -93,6 +95,16 @@ def main(argv=None):
                      ("StaticMod.sub", lambda: sm.sub(x, x))):
         fn()
         print(f"{what}: {launching_ops(fn)[0]} ops (k = 16)")
+    for c in (wst.ctx("bn254_g1"), g2.ctx()):
+        name = "bn254_g2" if c is g2.ctx() else "bn254_g1"
+        tmpl = x.new_zeros((c.k,) + (2,) * (c.ax - 1) + (args.batch,))
+        f = c.const_like(1, tmpl).expand(tmpl.shape)
+        pt = c.stack(f, f, f)
+        for what, fn in (("jac_add", lambda: wst.jac_add(c, pt, pt)),
+                         ("jac_double", lambda: wst.jac_double(c, pt)),
+                         ("to_affine", lambda: wst.to_affine(c, pt))):
+            print(f"weierstrass.{what} {name}: {launching_ops(fn)[0]} ops "
+                  f"(k = 16)")
     for name in filter(None, args.curves.split(",")):
         case = verify_case(name, args.batch, dev)
         ok = ecdsa.verify(name, *case)                   # warm the caches

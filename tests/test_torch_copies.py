@@ -1,11 +1,15 @@
 """The port's own copies of the JAX package's pure-Python modules
 (models/params, ops/curves, utils/poseidon_ref, babyjubjub_ref, rsa_keygen,
 ecdsa_ref, utils/constants/countries) and of
-utils/constants/poseidon_bn254.npz and the six fixed_base_<curve>.npz
-tables equal the originals: the registries field by
-field, the constants file by file and array by array, the oracles on
-seeded inputs."""
+utils/constants/poseidon_bn254.npz and the eight fixed_base_<curve>.npz
+tables (bn254_g1 and bn254_g2 among them) equal the originals: the
+registries field by field, the constants file by file and array by array,
+the oracles on seeded inputs. The copied host modules of the proving path
+(circuit/builder, poseidon, sha256, babyjubjub, register_light,
+groth16/pairing and export) hold the original's code, imports and
+docstrings aside (their syntax trees without those)."""
 
+import ast
 import dataclasses
 import pathlib
 import random
@@ -36,7 +40,12 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_CONST = ROOT / "passport_zk_circuits_tpu" / "utils" / "constants"
 JAX_NPZ = JAX_CONST / "poseidon_bn254.npz"
 FIXED_BASE = ("p256", "brainpoolP256r1", "brainpoolP320r1",
-              "brainpoolP384r1", "secp192r1", "secp224r1")
+              "brainpoolP384r1", "secp192r1", "secp224r1", "bn254_g1",
+              "bn254_g2")
+HOST_COPIES = ("circuit/__init__.py", "circuit/builder.py",
+               "circuit/poseidon.py", "circuit/sha256.py",
+               "circuit/babyjubjub.py", "circuit/register_light.py",
+               "groth16/pairing.py", "groth16/export.py")
 
 
 def test_sig_algo_registry_field_by_field():
@@ -125,3 +134,51 @@ def test_countries_table_equal_entry_by_entry():
     assert countries.COUNTRIES == jcountries.COUNTRIES
     assert len(countries.COUNTRIES) == 240
     assert len(set(countries.COUNTRIES)) == 240
+
+
+class _Strip(ast.NodeTransformer):
+    """Drops imports and docstrings from a syntax tree."""
+
+    def visit_Import(self, node):
+        return None
+
+    visit_ImportFrom = visit_Import
+
+    def _body(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body = body[1:]
+        node.body = body or [ast.Pass()]
+        return node
+
+    visit_Module = visit_ClassDef = visit_FunctionDef = _body
+    visit_AsyncFunctionDef = _body
+
+
+def _code(path: pathlib.Path) -> str:
+    return ast.dump(_Strip().visit(ast.parse(path.read_text())))
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copy_equals_the_original_imports_aside(rel):
+    mine = ROOT / "passport_zk_circuits_tpu_torch" / rel
+    theirs = ROOT / "passport_zk_circuits_tpu" / rel
+    assert _code(mine) == _code(theirs)
+    imports = {n.module for n in ast.walk(ast.parse(mine.read_text()))
+               if isinstance(n, ast.ImportFrom)}
+    # every import is the stdlib's, numpy's or relative (into the port)
+    assert all(m is None or m in ("__future__", "typing", "json", "struct",
+                                  "numpy") or not m.startswith("passport")
+               for m in imports), imports
+
+
+def test_the_strip_sees_a_changed_statement(tmp_path):
+    a, b = tmp_path / "a.py", tmp_path / "b.py"
+    a.write_text('"""doc"""\nimport os\n\ndef f():\n    """x"""\n    return 1\n')
+    b.write_text('"""other"""\nfrom . import y\n\ndef f():\n    return 1\n')
+    assert _code(a) == _code(b)
+    b.write_text('def f():\n    return 2\n')
+    assert _code(a) != _code(b)

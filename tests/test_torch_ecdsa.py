@@ -98,12 +98,12 @@ def test_group_formulas_equal_jax_coordinates(name):
     ps = _points(cv, 5)
     qs = _points(cv, 1) + [ps[1], (ps[2][0], cv.p - ps[2][1])] + _points(cv, 2)
     # make Z != 1: double first, then add
-    P = wst.jac_double(c, wst.point(_t([p[0] for p in ps], c.k),
-                                    _t([p[1] for p in ps], c.k),
-                                    _t([1] * 5, c.k)))
-    Q = wst.jac_double(c, wst.point(_t([q[0] for q in qs], c.k),
-                                    _t([q[1] for q in qs], c.k),
-                                    _t([1] * 5, c.k)))
+    P = wst.jac_double(c, c.stack(_t([p[0] for p in ps], c.k),
+                                   _t([p[1] for p in ps], c.k),
+                                   _t([1] * 5, c.k)))
+    Q = wst.jac_double(c, c.stack(_t([q[0] for q in qs], c.k),
+                                   _t([q[1] for q in qs], c.k),
+                                   _t([1] * 5, c.k)))
     inf = wst.infinity_like(c, P[:, 0])
     lanes = torch.tensor([True, True, True, True, False])
     Q = torch.where(lanes, Q, inf)                    # lane 4: P + inf

@@ -65,6 +65,25 @@ from passport_zk_circuits_tpu_torch.utils.constants.countries import COUNTRIES
 enc = bn.to_tensor(fr.batch_to_limbs([int.from_bytes(b"900115", "big")]), "cpu")
 assert [int(x) for x in dates.decode(enc)] == [15, 1, 90, 1]
 assert len(COUNTRIES) == 240
+from passport_zk_circuits_tpu_torch.circuit import babyjubjub as cbjj, builder, poseidon as cpose, register_light, sha256 as csha
+from passport_zk_circuits_tpu_torch.groth16 import export, pairing, protocol
+from passport_zk_circuits_tpu_torch.ingest import native
+from passport_zk_circuits_tpu_torch.ops import g2, msm, ntt
+from passport_zk_circuits_tpu_torch.r1cs import system as r1
+bld = builder.Builder(2)
+x = bld.input([3, 4])
+bld.finalize([x * x])
+ok, _ = r1.check_batched(bld.cs, bld.witness_matrix(), device="cpu")
+assert ok.tolist() == [True, True]
+assert native.pad_words32_batch([b"abc"], 512, 1).shape == (16, 1)
+assert torch.equal(ntt.intt(ntt.ntt(a[:, :2, None])), a[:, :2, None])
+g = protocol._g1_points_to_limbs([protocol._g1_mul(2), protocol._g1_mul(7)])[0]
+px, py = msm.msm_affine(bn.to_tensor(g[0], "cpu"), bn.to_tensor(g[1], "cpu"),
+                        a[:, None, :])
+assert (bn.limbs_to_int(px[:, 0]), bn.limbs_to_int(py[:, 0])) == protocol._g1_mul(41)
+qx, qy = g2.to_affine(g2.fixed_base_mul(a[:, :1]))
+assert g2.limbs_to_point(qx[..., 0], qy[..., 0]) == pairing.ec_mul(pairing.G2, 3)
+assert export.public_to_json([1, 2]).count("\n") >= 2
 bad = [m for m, v in sys.modules.items() if v is not None and
        (m.split(".")[0] in ("jax", "passport_zk_circuits_tpu"))]
 assert not bad, bad

@@ -6,7 +6,7 @@ what the port is held against: inputs at batch 2, built by the JAX
 package's synthetic generator and builder from a fixed seed, and every
 output of ``register_identity.forward``.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos|query]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos|query|prove]
 
 - ``tests/fixtures/torch_port_flagship_b2.npz``: the flagship config. Keys
   ``seed``, ``in_<PassportInputs field>``, ``in_sk_identity`` and
@@ -28,7 +28,26 @@ output of ``register_identity.forward``.
   one check broken (TD3: its sk off by one, the root made from the right
   sk; TD1: its citizenship blacklisted in the mask).
 
-With no argument all three files are written.
+- ``tests/fixtures/torch_port_prove_b2.npz``: the proving path at batch 2.
+  The JAX package's ``msm.msm_affine`` on G1 (N = 16) and G2 (N = 8)
+  points with zero scalars, infinity entries ((0, 0) with a zero scalar),
+  a point beside its negation and a repeated point (keys ``msm_<g1|g2>_``
+  ``px``, ``py``, ``scalars``, ``x``, ``y``); ``ntt`` and ``intt`` at
+  n = 1024, batch 2 (``ntt_1024_in``, ``ntt_1024_out``,
+  ``intt_1024_out``); ``g2.fixed_base_mul`` to affine
+  (``fb_g2_scalars``, ``fb_g2_x``, ``fb_g2_y``); and for the demo
+  circuit of ``tests/test_groth16.py`` and the 1,766-wire gadget circuit
+  (BabyJubJub identity key + Poseidon) of
+  ``tests/test_circuit_lowering.py`` (prefixes ``demo_``, ``gadget_``):
+  the triplets (``<m>_rc`` rows and columns, ``<m>_coeff`` limbs for m in
+  a, b, c), ``n_vars``, ``n_constraints``, ``n_public``, the witness,
+  the public values, ``h_coefficients``, the JAX ``setup``'s keys
+  (``pk_<field>``, ``vk_<field>``: points as limbs with an infinity flag)
+  and its ``prove``'s proofs (``proof_a``, ``proof_b``, ``proof_c``).
+  The JAX gadget setup makes its 1,766 G2 points on the host; the whole
+  target takes about an hour on 8 CPU cores.
+
+With no argument all four files are written.
 """
 
 import os
@@ -59,6 +78,8 @@ ALGOS_SEED = 20246
 ALGOS_OUT = ROOT / "tests" / "fixtures" / "torch_port_algos_b2.npz"
 QUERY_SEED = 20249
 QUERY_OUT = ROOT / "tests" / "fixtures" / "torch_port_query_b2.npz"
+PROVE_SEED = 20250
+PROVE_OUT = ROOT / "tests" / "fixtures" / "torch_port_prove_b2.npz"
 LIGHT_CONFIGS = ((3, 256), (3, 384), (1, 256))      # (document type, hash)
 
 
@@ -153,13 +174,176 @@ def query_arrays(seed: int) -> dict:
     return arrays
 
 
+def demo_circuit(r1):
+    """The demo system of tests/test_groth16.py over ``r1``'s
+    ConstraintSystem (public z, w4; private x, y, s and x's 8 bits) and
+    its witness rows for lanes (x, y)."""
+    cs = r1.ConstraintSystem()
+    z = cs.new_var("z")
+    w4 = cs.new_var("w4")
+    x = cs.new_var("x")
+    y = cs.new_var("y")
+    cs.constrain({x: 1}, {y: 1}, {z: 1})
+    s = cs.new_var("s")
+    cs.constrain({x: 1, y: 1}, {0: 1}, {s: 1})
+    cs.constrain({s: 1}, {s: 1}, {w4: 1})
+    cs.bits(x, 8)
+    return cs
+
+
+def demo_rows(xs, ys, p):
+    zs = [x * y % p for x, y in zip(xs, ys)]
+    w4s = [(x + y) ** 2 % p for x, y in zip(xs, ys)]
+    rows = [1, zs, w4s, xs, ys, [(x + y) % p for x, y in zip(xs, ys)]]
+    rows += [[(x >> i) & 1 for x in xs] for i in range(8)]
+    return rows, [zs, w4s]
+
+
+def gadget_circuit(circuit, sks):
+    """The gadget circuit of tests/test_circuit_lowering.py over the
+    ``circuit`` package given: pk = Base8 * sk, public Poseidon(pk)."""
+    from importlib import import_module
+    cbjj = import_module(circuit + ".babyjubjub")
+    cpose = import_module(circuit + ".poseidon")
+    builder = import_module(circuit + ".builder")
+    b = builder.Builder(len(sks))
+    sk = b.input(sks)
+    px, py = cbjj.base8_mul(b, sk)
+    pub = b.finalize([cpose.poseidon(b, [px, py])])
+    return b, pub
+
+
+def _limbs(v, k=16):
+    from passport_zk_circuits_tpu.ops import bignum as bn
+    return bn.int_to_limbs(int(v), k)
+
+
+def point_arrays(pt) -> np.ndarray:
+    """A G1 (int) or G2 (FQ2) affine point -> (2, 16) or (2, 16, 2) limbs;
+    infinity -> (2, 16) limbs of 0xFFFF (no coordinate's)."""
+    if pt is None:
+        return np.full((2, 16), 0xFFFF, np.uint32)
+    if hasattr(pt[0], "coeffs"):
+        return np.stack([np.stack([_limbs(c) for c in e.coeffs], axis=1)
+                         for e in pt])
+    return np.stack([_limbs(pt[0]), _limbs(pt[1])])
+
+
+def prove_arrays(seed: int) -> dict:
+    """The JAX package's MSMs, G2 fixed-base mult, h coefficients, keys and
+    proofs (see the module docstring)."""
+    import jax
+    from passport_zk_circuits_tpu import groth16 as g16
+    from passport_zk_circuits_tpu.groth16 import pairing as pr
+    from passport_zk_circuits_tpu.groth16 import protocol as proto
+    from passport_zk_circuits_tpu.ops import bignum as bn
+    from passport_zk_circuits_tpu.ops import g2
+    from passport_zk_circuits_tpu.ops import msm
+    from passport_zk_circuits_tpu.ops import ntt
+    from passport_zk_circuits_tpu.r1cs import system as r1
+
+    rng = random.Random(seed)
+    arrays = {"seed": np.array(seed)}
+    msm_jit = proto._msm_jit            # the JAX prover's own program
+    for curve, n in (("g1", 16), ("g2", 8)):
+        if curve == "g1":
+            pts = [proto._g1_mul(rng.randrange(1, pr.R)) for _ in range(n - 3)]
+            neg = (pts[0][0], (proto._Q - pts[0][1]) % proto._Q)
+            pts = pts + [neg, pts[1], None]
+            q, _ = proto._g1_points_to_limbs(pts)
+        else:
+            pts = [pr.ec_mul(pr.G2, rng.randrange(1, pr.R))
+                   for _ in range(n - 3)]
+            pts = pts + [pr.ec_neg(pts[0]), pts[1], None]
+            q, _ = g2.points_to_limbs(pts)
+        sc = [[rng.randrange(pr.R) for _ in range(n)] for _ in range(BATCH)]
+        sc[0][2] = 0                                # a zero scalar
+        sc[1][0] = sc[0][0]
+        sc[1][n - 3] = sc[1][0]                     # P and -P cancel
+        sc[1][n - 2] = sc[1][1]                     # P twice: a doubling
+        for lane in sc:
+            lane[n - 1] = 0                         # the infinity entry
+        sl = np.stack([bn.ints_to_limbs_batch(s, 16) for s in sc], axis=1)
+        name = "bn254_g2" if curve == "g2" else "bn254_g1"
+        x, y = msm_jit(q[0], q[1], sl, curve=name)
+        tag = f"msm_{curve}_"
+        arrays.update({tag + "px": q[0], tag + "py": q[1],
+                       tag + "scalars": sl, tag + "x": np.asarray(x),
+                       tag + "y": np.asarray(y)})
+        print(f"msm {curve}: done", flush=True)
+    vals = [rng.choice([0, 1, pr.R - 1, rng.randrange(pr.R)])
+            for _ in range(1024 * BATCH)]
+    a = bn.ints_to_limbs_batch(vals, 16).reshape(16, 1024, BATCH)
+    f = jax.jit(ntt.ntt)(a)
+    arrays.update({"ntt_1024_in": a, "ntt_1024_out": np.asarray(f),
+                   "intt_1024_out": np.asarray(jax.jit(ntt.intt)(f))})
+    print("ntt 1024: done", flush=True)
+    fb = [rng.randrange(pr.R) for _ in range(3)] + [0, 1, pr.R - 1]
+    fl = bn.ints_to_limbs_batch(fb, 16)
+    x, y = jax.jit(lambda s: g2.to_affine(g2.fixed_base_mul(s)))(fl)
+    arrays.update({"fb_g2_scalars": fl, "fb_g2_x": np.asarray(x),
+                   "fb_g2_y": np.asarray(y)})
+    print("g2 fixed base: done", flush=True)
+
+    xs = [rng.randrange(1 << 8) for _ in range(BATCH)]
+    ys = [rng.randrange(pr.R) for _ in range(BATCH)]
+    rows, pub = demo_rows(xs, ys, pr.R)
+    sks = [rng.randrange(1, pr.R) for _ in range(BATCH)]
+    b, gpub = gadget_circuit("passport_zk_circuits_tpu.circuit", sks)
+    circuits = {
+        "demo": (demo_circuit(r1), r1.witness_matrix(rows, BATCH), pub, 2,
+                 7, 3),
+        "gadget": (b.cs, b.witness_matrix(), gpub, 1, 3, 4)}
+    for name, (cs, w, pubs, n_pub, s_seed, p_seed) in circuits.items():
+        tag = f"{name}_"
+        for m in ("a", "b", "c"):
+            mat = getattr(cs, m)
+            arrays[f"{tag}{m}_rc"] = np.array(
+                [(r, c) for r, c, _ in mat], np.int64).reshape(-1, 2)
+            arrays[f"{tag}{m}_coeff"] = np.array(
+                [_limbs(v) for _, _, v in mat], np.uint32).reshape(-1, 16)
+        arrays.update({
+            tag + "n_vars": np.array(cs.n_vars),
+            tag + "n_constraints": np.array(cs.n_constraints),
+            tag + "n_public": np.array(n_pub), tag + "witness": w,
+            tag + "public": np.array([[_limbs(v) for v in lane_vals]
+                                      for lane_vals in pubs], np.uint32),
+            tag + "h": np.asarray(proto.h_coefficients(cs, w))})
+        pk, vk = g16.setup(cs, n_public=n_pub, seed=s_seed)
+        for f in ("alpha1", "beta1", "delta1", "beta2", "delta2"):
+            arrays[f"{tag}pk_{f}"] = point_arrays(getattr(pk, f))
+        for f in ("a_query", "b1_query", "k_query", "h_query", "b2_query",
+                  "a_inf", "b1_inf", "k_inf", "b2_inf"):
+            arrays[f"{tag}pk_{f}"] = np.asarray(getattr(pk, f))
+        arrays[tag + "domain_size"] = np.array(pk.domain_size)
+        for f in ("alpha1", "beta2", "gamma2", "delta2"):
+            arrays[f"{tag}vk_{f}"] = point_arrays(getattr(vk, f))
+        arrays[tag + "vk_ic"] = np.stack([point_arrays(p) for p in vk.ic])
+        print(f"{name}: setup done", flush=True)
+        # the prover's MSMs in chunks of the MSM cases' shapes (16 G1 and 8
+        # G2 points, the last G1 chunk 8): XLA compiles each shape once,
+        # where at the prover's own 2,048-point bucket a compile takes the
+        # CPU hours; an MSM is a unique point whatever its chunks
+        chunks = proto._MSM_CHUNK, proto._MSM_CHUNK_G2
+        proto._MSM_CHUNK, proto._MSM_CHUNK_G2 = 16, 8
+        try:
+            proofs = g16.prove(pk, cs, w, seed=p_seed)
+        finally:
+            proto._MSM_CHUNK, proto._MSM_CHUNK_G2 = chunks
+        for f in ("a", "b", "c"):
+            arrays[f"{tag}proof_{f}"] = np.stack(
+                [point_arrays(getattr(p, f)) for p in proofs])
+        print(f"{name}: prove done", flush=True)
+    return arrays
+
+
 def save(path: pathlib.Path, arrays: dict) -> None:
     os.makedirs(path.parent, exist_ok=True)
     np.savez_compressed(path, **arrays)
     print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
-def main(which=("flagship", "algos", "query")):
+def main(which=("flagship", "algos", "query", "prove")):
     import jax
     jax.config.update("jax_platforms", "cpu")
     if "flagship" in which:
@@ -173,7 +357,9 @@ def main(which=("flagship", "algos", "query")):
         save(ALGOS_OUT, arrays)
     if "query" in which:
         save(QUERY_OUT, query_arrays(QUERY_SEED))
+    if "prove" in which:
+        save(PROVE_OUT, prove_arrays(PROVE_SEED))
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("flagship", "algos", "query"))
+    main(tuple(sys.argv[1:]) or ("flagship", "algos", "query", "prove"))
