@@ -39,7 +39,14 @@ launch counter set to 0 just before it and read just after:
   55,805 constraints, domain 65,536), batch 2: the Light forward on the
   card (K1's per-message entry, K3, K5's affine entry) gives the public
   values; r1cs.check_batched, groth16.setup, prove and verify (plain
-  PyTorch: no hand-written kernel on the prover).
+  PyTorch: no hand-written kernel on the prover);
+* Groth16 on QueryIdentity TD3 (26,706 wires, 27,025 constraints, domain
+  32,768), batch 2: the Query forward on the card (K3, K4, K5's affine
+  entry) gives the public values;
+* Groth16 on the flagship RegisterIdentity circuit at its real size
+  (511,677 wires, 514,800 constraints, domain 524,288), batch 1: the
+  witness step's forward above (K1's many-message entry, K2-K4, K5's
+  affine entry) gives the public values of its lane 2.
 
 The script
 
@@ -94,8 +101,19 @@ The script
    samples of 512 and 12,289 G1 points (the second in two window groups
    of unequal size) and 64 G2 points, two proves timed by stage that must
    be equal, verify in the pool (both lanes true, a wrong input false), the
-   phase under 300 s; the profiler's session holds one warm G1 MSM
-   (CUDA kernels, device time, idle share);
+   phase under 300 s; the profiler's session holds one warm G1 MSM, the
+   12,289-point sample (CUDA kernels, device time, idle share);
+   then phase prove_query (QueryIdentity TD3 at batch 2, two lanes of
+   18-24 live levels: the circuit's size and its public values against
+   the card's Query forward, check_batched with the q_root wire of lane 0
+   tampered, setup and one prove timed, verify in the pool; under 90 s)
+   and phase prove_flagship (the flagship circuit of the witness step's
+   lane 2, built in the pool while the phases above ran: its size against
+   the JAX package's lowering in tests/fixtures/torch_port_lowering.npz,
+   its four public values against the card's forward, check_batched with
+   a tampered private wire, setup with each MSM's window groups, one cold
+   prove timed by stage, verify in the pool, the peak device memory; under
+   600 s); the whole script must end within 1,200 s;
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
@@ -119,7 +137,10 @@ import time
 import numpy as np
 import torch
 
+from passport_zk_circuits_tpu_torch.circuit import query_identity
+from passport_zk_circuits_tpu_torch.circuit import register_identity
 from passport_zk_circuits_tpu_torch.circuit import register_light
+from passport_zk_circuits_tpu_torch.circuit.builder import Builder
 from passport_zk_circuits_tpu_torch.groth16 import pairing as g16pr
 from passport_zk_circuits_tpu_torch.groth16 import protocol as g16p
 from passport_zk_circuits_tpu_torch.ingest import builder, identity, synthetic
@@ -1499,6 +1520,8 @@ LIGHT_R1CS = (55438, 55805, 65536)
 # (query, points) vs host ints; 12,289 G1 points at B = 2 need two window
 # groups (42 + 22 windows), each halved once with an odd point carried
 MSM_SAMPLES = (("a", 512), ("a", 12289), ("b2", 64))
+# the sample whose warm MSM joins the profiler's session
+PROFILED_MSM = ("a", 12289)
 PROVE_STAGES = ("h", "msm_a", "msm_b1", "msm_k", "msm_h", "g1_chain",
                 "msm_b2")
 SETUP_PARTS = ("qap", "a_query", "b1_query", "k_query", "h_query",
@@ -1513,6 +1536,47 @@ def _rows_failing(cs, w_ints, rows):
             if row in acc:
                 acc[row][m] = (acc[row][m] + coeff * w_ints[col]) % fr.P
     return {r for r, (a, b, c) in acc.items() if a * b % fr.P != c}
+
+
+def tamper_check(cs, n_public, w, w_np, rng, wire=None):
+    """check_batched on the card: every lane true on the good witness
+    (w: a tensor on the card, w_np the same as numpy); then one wire + 1
+    on lane 0 (wire, else a private wire drawn whose +1 breaks some row)
+    must fail exactly the rows whose Python-int value it breaks, and every
+    other lane must stay true."""
+    lanes = w.shape[2]
+    ok, per = r1.check_batched(cs, w)
+    check(ok.tolist() == [True] * lanes and bool(per.all()),
+          "check_batched: a lane fails on the good witness")
+    good = [bn.limbs_to_int(w_np[i, :, 0]) for i in range(cs.n_vars)]
+    want, pick = set(), wire is None
+    while not want:         # a wire whose +1 breaks some row
+        if pick:
+            wire = n_public + 1 + rng.randrange(cs.n_vars - n_public - 1)
+        lane0 = list(good)
+        lane0[wire] = (lane0[wire] + 1) % fr.P
+        reading = sorted({r for mat in (cs.a, cs.b, cs.c)
+                          for r, c, _ in mat if c == wire})
+        want = _rows_failing(cs, lane0, reading)
+        check(pick or bool(want), f"wire {wire} + 1 breaks no row")
+    bad = w.clone()
+    bad[wire, :, 0] = bn.to_tensor(fr.to_limbs(lane0[wire]), w.device)
+    t0 = time.perf_counter()
+    ok2, per2 = r1.check_batched(cs, bad)
+    torch.cuda.synchronize()
+    t_check = time.perf_counter() - t0
+    failing = set(torch.nonzero(~per2[:, 0]).flatten().tolist())
+    check(failing == want, f"check_batched: wire {wire} broke rows "
+          f"{sorted(failing)[:8]}, not {sorted(want)[:8]}")
+    check(ok2.tolist() == [False] + [True] * (lanes - 1)
+          and bool(per2[:, 1:].all()),
+          "check_batched: an untampered lane fails")
+    shown = sorted(want) if len(want) <= 8 else f"{len(want)} rows"
+    print(f"  check_batched: {'every lane' if lanes > 1 else 'the lane'} "
+          f"true; wire {wire} ({cs.labels.get(wire, 'unlabelled')}, +1 on "
+          f"lane 0, read by {len(reading)} rows) fails exactly rows {shown} "
+          f"on lane 0{', the others true' if lanes > 1 else ''}; "
+          f"{t_check:.3f} s a check (host clock); card: {CARD['name']}")
 
 
 def _host_msm(pool, query, scalars, g2f):
@@ -1575,43 +1639,9 @@ def phase_prove(dev, rng, entries, pool):
           f"card's forward ({', '.join(LIGHT_OUTS)}) on both lanes")
 
     w = bn.to_tensor(w_np, dev)
-    ok, per = r1.check_batched(cs, w)
-    check(ok.tolist() == [True] * PROVE_BATCH and bool(per.all()),
-          "check_batched: a lane fails on the good witness")
-    good = [bn.limbs_to_int(w_np[i, :, 0]) for i in range(cs.n_vars)]
-    want = set()
-    while not want:         # a private wire whose +1 breaks some row
-        wire = b.n_public + 1 + rng.randrange(cs.n_vars - b.n_public - 1)
-        lane0 = list(good)
-        lane0[wire] = (lane0[wire] + 1) % fr.P
-        reading = sorted({r for mat in (cs.a, cs.b, cs.c)
-                          for r, c, _ in mat if c == wire})
-        want = _rows_failing(cs, lane0, reading)
-    bad = w.clone()
-    bad[wire, :, 0] = bn.to_tensor(fr.to_limbs(lane0[wire]), dev)
-    t0 = time.perf_counter()
-    ok2, per2 = r1.check_batched(cs, bad)
-    torch.cuda.synchronize()
-    t_check = time.perf_counter() - t0
-    failing = set(torch.nonzero(~per2[:, 0]).flatten().tolist())
-    check(bool(want) and failing == want,
-          f"check_batched: wire {wire} broke rows {sorted(failing)}, not "
-          f"{sorted(want)}")
-    check(ok2.tolist() == [False, True] and bool(per2[:, 1].all()),
-          "check_batched: the untampered lane 1 fails")
-    print(f"  check_batched: both lanes true; wire {wire} (+1 on lane 0, "
-          f"read by {len(reading)} rows) fails exactly rows {sorted(want)} "
-          f"on lane 0, lane 1 true; {t_check:.3f} s a check (host clock); "
-          f"card: {card}")
+    tamper_check(cs, b.n_public, w, w_np, rng)
 
-    setup_s = {}
-    t0 = time.perf_counter()
-    pk, vk = g16p.setup(cs, b.n_public, seed=PROVE_SETUP_SEED, device=dev,
-                        times=setup_s)
-    setup_total = time.perf_counter() - t0
-    print(f"  setup: {setup_total:.2f} s ("
-          + ", ".join(f"{k} {setup_s[k]:.2f}" for k in SETUP_PARTS)
-          + f" s; host clock, each part fenced); card: {card}")
+    pk, vk, setup_total = timed_setup(cs, b.n_public, PROVE_SETUP_SEED, dev)
 
     scal = w.permute(1, 2, 0)                          # (16, B, n_vars)
     most_groups = 0
@@ -1630,6 +1660,10 @@ def phase_prove(dev, rng, entries, pool):
         x, y = msm.msm_affine(qx, qy, sc, curve)
         torch.cuda.synchronize()
         t_dev = time.perf_counter() - t0
+        if (name, n) == PROFILED_MSM:
+            profiled = (f"prove: one warm G1 MSM ({n} points of {name}_query,"
+                        f" B = {PROVE_BATCH}, {groups} window groups)",
+                        (qx, qy, sc))
         x, y = x.cpu().numpy(), y.cpu().numpy()
         got = [g2.limbs_to_point(x[..., i], y[..., i]) if g2f
                else _g1_ints(x, y, i) for i in range(PROVE_BATCH)]
@@ -1644,43 +1678,215 @@ def phase_prove(dev, rng, entries, pool):
               f"{time.perf_counter() - t0:.2f} s in the pool)")
     check(most_groups > 1, "no G1 MSM sample ran in several window groups")
 
-    proofs, prove_s = [], []
-    for label in ("cold", "warm"):
-        st = {}
-        t0 = time.perf_counter()
-        proofs.append(g16p.prove(pk, cs, w, seed=PROVE_SEED, times=st))
-        prove_s.append((time.perf_counter() - t0, st))
-        print(f"  prove ({label}, B = {PROVE_BATCH}): "
-              f"{prove_s[-1][0]:.2f} s ("
-              + ", ".join(f"{k} {st[k]:.2f}" for k in PROVE_STAGES)
-              + f" s; host clock, each stage fenced); card: {card}")
+    proofs, prove_s = zip(*(timed_prove(pk, cs, w, PROVE_SEED, label)
+                            for label in ("cold", "warm")))
     check(all(p.a == q.a and p.c == q.c and p.b == q.b
               for p, q in zip(*proofs)), "the cold and warm proofs differ")
-    pubs = [[pub[j][lane] for j in range(b.n_public)]
-            for lane in range(PROVE_BATCH)]
-    wrong = [(pubs[0][0] + 1) % fr.P] + pubs[0][1:]
-    t0 = time.perf_counter()
-    verdicts = pool.starmap(g16p.verify, [(vk, proofs[1][lane], pubs[lane])
-                                          for lane in range(PROVE_BATCH)]
-                            + [(vk, proofs[1][0], wrong)])
-    t_verify = time.perf_counter() - t0
-    check(verdicts == [True] * PROVE_BATCH + [False],
-          f"verify: {verdicts}, not both lanes true and the wrong input "
-          "false")
-    print(f"  verify: both lanes true, lane 0 with a public input plus one "
-          f"false; {t_verify:.2f} s for the three in the pool (host); the "
-          "cold and warm proofs are equal")
+    t_verify = pool_verify(pool, vk, proofs[1], pub)
+    print("  the cold and warm proofs are equal")
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     total = time.perf_counter() - started
     print(f"groth16 light B = {PROVE_BATCH}: setup {setup_total:.2f} s, "
-          f"prove cold {prove_s[0][0]:.2f} s, warm {prove_s[1][0]:.2f} s, "
+          f"prove cold {prove_s[0]:.2f} s, warm {prove_s[1]:.2f} s, "
           f"verify {t_verify:.2f} s (3 proofs, pool); peak device memory "
           f"{peak:.2f} GiB; phase {total:.1f} s; card: {card}")
     check(total < 300, f"phase prove took {total:.1f} s, not under 300")
-    qx, qy, inf = pk.queries["a"]
-    sc = scal.masked_fill(inf, 0)
-    return {f"prove: one warm G1 MSM (a_query, {cs.n_vars} points, "
-            f"B = {PROVE_BATCH})": lambda: msm.msm_affine(qx, qy, sc)}
+    label, (qx, qy, sc) = profiled
+    return {label: lambda: msm.msm_affine(qx, qy, sc)}
+
+
+def timed_setup(cs, n_public, seed, dev):
+    """groth16.setup on the card, timed by part; returns (pk, vk, s)."""
+    parts = {}
+    t0 = time.perf_counter()
+    pk, vk = g16p.setup(cs, n_public, seed=seed, device=dev, times=parts)
+    total = time.perf_counter() - t0
+    print(f"  setup: {total:.2f} s ("
+          + ", ".join(f"{k} {parts[k]:.2f}" for k in SETUP_PARTS)
+          + f" s; host clock, each part fenced); card: {CARD['name']}")
+    return pk, vk, total
+
+
+def timed_prove(pk, cs, w, seed, label):
+    """One groth16.prove call on the card, timed by stage; returns (proofs,
+    s)."""
+    st = {}
+    t0 = time.perf_counter()
+    proofs = g16p.prove(pk, cs, w, seed=seed, times=st)
+    total = time.perf_counter() - t0
+    print(f"  prove ({label}, B = {w.shape[2]}): {total:.2f} s ("
+          + ", ".join(f"{k} {st[k]:.2f}" for k in PROVE_STAGES)
+          + f" s; host clock, each stage fenced); card: {CARD['name']}")
+    return proofs, total
+
+
+def pool_verify(pool, vk, proofs, pub):
+    """groth16.verify in the pool (host pairing): each lane's proof on its
+    public values true, lane 0's with its first public value plus one
+    false; returns the seconds of all of them."""
+    lanes = len(proofs)
+    pubs = [[vals[lane] for vals in pub] for lane in range(lanes)]
+    wrong = [(pubs[0][0] + 1) % fr.P] + pubs[0][1:]
+    t0 = time.perf_counter()
+    verdicts = pool.starmap(g16p.verify, [(vk, proofs[lane], pubs[lane])
+                                          for lane in range(lanes)]
+                            + [(vk, proofs[0], wrong)])
+    t_verify = time.perf_counter() - t0
+    check(verdicts == [True] * lanes + [False],
+          f"verify: {verdicts}, not every lane true and the wrong input "
+          "false")
+    print(f"  verify: {'every lane' if lanes > 1 else 'the lane'} true, "
+          f"lane 0 with a public input plus one false; {t_verify:.2f} s for "
+          f"the {lanes + 1} in the pool (host)")
+    return t_verify
+
+
+QUERY_R1CS = (26706, 27025, 32768)      # QueryIdentity TD3 at B = 2
+QUERY_PHASE_S = 90
+# the flagship's public outputs, in tools/prove_flagship_tpu.py's order
+FLAGSHIP_PUBLIC = ("dg15_pubkey_hash", "passport_hash", "dg1_commitment",
+                   "pk_identity_hash")
+FLAGSHIP_LANE = 2               # phase_slice's first untampered passport
+FLAGSHIP_SETUP_SEED, FLAGSHIP_PROVE_SEED = 11, 12
+FLAGSHIP_DOMAIN = 1 << 19
+FLAGSHIP_PHASE_S = 600
+# the JAX package's lowering of the flagship: its sizes (prefix c1_)
+LOWERING_FIXTURE = "tests/fixtures/torch_port_lowering.npz"
+SCRIPT_S = 1200
+
+
+def flagship_circuit(pp):
+    """The flagship's R1CS on one passport, built by the port's
+    circuit/register_identity in a pool's worker process and finalized
+    with FLAGSHIP_PUBLIC: (cs, witness matrix, public values, n_public,
+    host seconds, (wires, constraints) before finalize)."""
+    p = params.CircuitParams.from_name(FLAGSHIP)
+    t0 = time.perf_counter()
+    b, outs = register_identity.build(p, [pp])
+    pre = (b.cs.n_vars, b.cs.n_constraints)
+    pub = b.finalize([outs[k] for k in FLAGSHIP_PUBLIC])
+    w = b.witness_matrix()
+    return b.cs, w, pub, b.n_public, time.perf_counter() - t0, pre
+
+
+def phase_prove_query(dev, rng, entries, pool):
+    """Groth16 on QueryIdentity TD3 at batch 2 on the card: two untampered
+    lanes on identity-state paths of 18-24 live levels (roots from
+    ingest/identity), the Query forward on the card (K3, K4, K5's affine
+    entry; every check true), the circuit (circuit/query_identity on the
+    same lanes: 26,706 wires, 27,025 constraints, domain 32,768) whose
+    public values, the nine gated outputs, must equal the forward's,
+    check_batched (both lanes true; the q_root wire + 1 on lane 0 fails
+    exactly the rows its Python-int value breaks, lane 1 true), setup
+    timed by part, one prove timed by stage, verify in the pool (both
+    lanes true, a public input plus one false); the phase under 90 s."""
+    card = CARD["name"]
+    started = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    lanes = identity.with_roots(query_lanes(rng, 3, PROVE_BATCH), 3)
+    live = [sum(1 for s in ln.siblings if s) for ln in lanes]
+    inp = identity.query_inputs(identity.query_arrays(lanes), dev)
+    out, checks = run_path(f"prove: query TD3, B = {PROVE_BATCH}", entries,
+                           QUERY_ON, lambda: qi.forward(inp, 3, SMT_LEVELS),
+                           off=QUERY_OFF)
+    check_verdicts("prove: query TD3", checks, {})
+    names = list(out)
+    t0 = time.perf_counter()
+    b = Builder(PROVE_BATCH)
+    outs = query_identity.build(b, identity.lowering_inputs(lanes), 3)
+    pre = (b.cs.n_vars, b.cs.n_constraints)
+    pub = b.finalize([outs[k] for k in names])
+    cs = b.cs
+    w_np = b.witness_matrix()
+    dom = 1 << (cs.n_constraints - 1).bit_length()
+    print(f"  query circuit (live levels {live}): {pre[0]} wires and "
+          f"{pre[1]} constraints before finalize; {cs.n_vars} wires, "
+          f"{cs.n_constraints} constraints, domain {dom}, nnz A {len(cs.a)} "
+          f"B {len(cs.b)} C {len(cs.c)}; built in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    check((cs.n_vars, cs.n_constraints, dom) == QUERY_R1CS,
+          f"query circuit is not {QUERY_R1CS}")
+    check([fr.batch_from_limbs(out[k]) for k in names] == pub,
+          "query circuit's public values != the card's Query forward")
+    print(f"  query circuit: its {b.n_public} public values equal the card's "
+          f"forward ({', '.join(names)}) on both lanes")
+    w = bn.to_tensor(w_np, dev)
+    root = next(i for i, lbl in cs.labels.items() if lbl == "q_root")
+    tamper_check(cs, b.n_public, w, w_np, rng, wire=root)
+    pk, vk, setup_total = timed_setup(cs, b.n_public, PROVE_SETUP_SEED, dev)
+    proofs, prove_total = timed_prove(pk, cs, w, PROVE_SEED,
+                                      "one call, its chains' graphs warm")
+    t_verify = pool_verify(pool, vk, proofs, pub)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    total = time.perf_counter() - started
+    print(f"groth16 query TD3 B = {PROVE_BATCH}: setup {setup_total:.2f} s, "
+          f"prove {prove_total:.2f} s, verify {t_verify:.2f} s (3 proofs, "
+          f"pool); peak device memory {peak:.2f} GiB; phase {total:.1f} s; "
+          f"card: {card}")
+    check(total < QUERY_PHASE_S, f"phase prove_query took {total:.1f} s, "
+          f"not under {QUERY_PHASE_S}")
+
+
+def phase_prove_flagship(dev, rng, out, job, pool):
+    """Groth16 on the flagship RegisterIdentity circuit at its real size,
+    batch 1, on the card: the circuit of phase_slice's passport
+    FLAGSHIP_LANE (job: flagship_circuit, built in the pool while the
+    earlier phases ran), its size against the JAX package's lowering
+    (LOWERING_FIXTURE) and domain 2^19, its four public values against
+    lane FLAGSHIP_LANE of the card's flagship forward (out), check_batched
+    (true; a private wire + 1 fails exactly the rows its Python-int value
+    breaks), setup (seed 11) timed by part and each MSM's window groups,
+    one cold prove (seed 12, which captures the CUDA graphs of its Horner
+    chains' shapes) timed by stage, verify in the pool (true, a public
+    input plus one false), the peak device memory; the phase under 600
+    s."""
+    card = CARD["name"]
+    started = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cs, w_np, pub, n_public, t_build, pre = job.get()
+    dom = 1 << (cs.n_constraints - 1).bit_length()
+    with np.load(LOWERING_FIXTURE) as d:
+        want = (int(d["c1_n_vars"]), int(d["c1_n_constraints"]))
+    print(f"  flagship circuit: {pre[0]} wires and {pre[1]} constraints "
+          f"before finalize; {cs.n_vars} wires, {cs.n_constraints} "
+          f"constraints, domain {dom}, nnz A {len(cs.a)} B {len(cs.b)} C "
+          f"{len(cs.c)}; built with its witness in {t_build:.1f} s (host, a "
+          f"worker of the pool, beside the earlier phases; waited "
+          f"{time.perf_counter() - started:.1f} s for it)")
+    check((cs.n_vars, cs.n_constraints) == want and dom == FLAGSHIP_DOMAIN,
+          f"flagship circuit is not {want} at domain {FLAGSHIP_DOMAIN}, as "
+          "the JAX package's lowering")
+    lane = slice(FLAGSHIP_LANE, FLAGSHIP_LANE + 1)
+    check([fr.batch_from_limbs(out[k][:, lane]) for k in FLAGSHIP_PUBLIC]
+          == pub, "flagship circuit's public values != lane "
+          f"{FLAGSHIP_LANE} of the card's flagship forward")
+    print(f"  flagship circuit: its {n_public} public values equal lane "
+          f"{FLAGSHIP_LANE} of the card's flagship forward "
+          f"({', '.join(FLAGSHIP_PUBLIC)})")
+    w = bn.to_tensor(w_np, dev)
+    tamper_check(cs, n_public, w, w_np, rng)
+    pk, vk, setup_total = timed_setup(cs, n_public, FLAGSHIP_SETUP_SEED, dev)
+    nwin = fr.NLIMBS * 16 // msm.WINDOW
+    for name in g16p.QUERIES:
+        curve = "bn254_g2" if name == "b2" else "bn254_g1"
+        n = getattr(pk, f"{name}_query").shape[-1]
+        g = msm.window_group(curve, nwin, 1, n)
+        print(f"  MSM {name}: {n} points over {curve}, {-(-nwin // g)} "
+              f"window groups of {g} window(s) (budget {msm.BUDGET[curve]} "
+              "points a group's first tree level)")
+    proofs, prove_total = timed_prove(
+        pk, cs, w, FLAGSHIP_PROVE_SEED, "cold: it captures its Horner "
+        "chains' CUDA graphs")
+    t_verify = pool_verify(pool, vk, proofs, pub)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    total = time.perf_counter() - started
+    print(f"groth16 flagship B = 1 ({cs.n_constraints} constraints, domain "
+          f"{dom}): host build {t_build:.1f} s (pool), setup "
+          f"{setup_total:.2f} s, prove {prove_total:.2f} s (cold), verify "
+          f"{t_verify:.2f} s (2 proofs, pool); peak device memory "
+          f"{peak:.2f} GiB; phase {total:.1f} s; card: {card}")
+    check(total < FLAGSHIP_PHASE_S, f"phase prove_flagship took "
+          f"{total:.1f} s, not under {FLAGSHIP_PHASE_S}")
 
 
 def stage_ms(p, inp, reps=3):
@@ -1832,30 +2038,40 @@ def main():
           f"({cuda_build.BUILD_DIR})")
     ptxas_check()
 
+    def announce(what):
+        print(f"{what} (at {time.perf_counter() - started:.1f} s)")
+
     rng = random.Random(SEED)
     entries = []
     for phase in (phase_sha, phase_rsa, phase_poseidon, phase_smt,
                   phase_ladder, phase_field, phase_loop, phase_probe):
-        print(f"phase {phase.__name__}")
+        announce(f"phase {phase.__name__}")
         got = phase(dev, rng)
         entries.extend(got if isinstance(got, list) else [got])
 
-    print("phase slice")
+    announce("phase slice")
     p, pps, inp, out = phase_slice(dev, rng, entries)
-    print("phase algo_paths (ECDSA, RSA-PSS)")
+    announce("phase algo_paths (ECDSA, RSA-PSS)")
     workers = max(1, min(8, (os.cpu_count() or 2) - 2))
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        flagship_job = pool.apply_async(flagship_circuit,
+                                        (pps[FLAGSHIP_LANE],))
         runs = phase_algo_paths(dev, rng, entries, pool)
-        print("phase light (RegisterIdentityLight)")
+        announce("phase light (RegisterIdentityLight)")
         id_runs = phase_light(dev, rng, entries, pool)
-        print("phase query (QueryIdentity TD3 and TD1)")
+        announce("phase query (QueryIdentity TD3 and TD1)")
         id_runs.update(phase_query(dev, rng, entries, pool))
-        print("phase chain (register -> query on the flagship step)")
+        announce("phase chain (register -> query on the flagship step)")
         phase_chain(dev, rng, entries, pool, pps, inp, out)
-        print("phase prove (Groth16 on RegisterIdentityLight, B = 2)")
+        announce("phase prove (Groth16 on RegisterIdentityLight, B = 2)")
         prove_runs = phase_prove(dev, rng, entries, pool)
-    print("one forward of each path, then one call of each short kernel, "
-          "under torch.profiler")
+        announce("phase prove_query (Groth16 on QueryIdentity TD3, B = 2)")
+        phase_prove_query(dev, rng, entries, pool)
+        announce("phase prove_flagship (Groth16 on RegisterIdentity, the "
+                 "flagship, B = 1)")
+        phase_prove_flagship(dev, rng, out, flagship_job, pool)
+    announce("one forward of each path, then one call of each short kernel, "
+             "under torch.profiler")
     forwards = [("witness step", lambda: ri.forward(p, inp))] + [
         (path, lambda q=q, x=x: ri.forward(q, x))
         for path, (q, x, _) in runs.items()] + [
@@ -1895,8 +2111,11 @@ def main():
           f"field-muls/s; card: {card}")
     check(len(entries) == len(KERNELS) and
           all("launches" in e for e in entries), "a kernel has no launches")
-    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the "
-          "build included (host clock)")
+    total = time.perf_counter() - started
+    print(f"chip_smoke: {total:.1f} s in all, the build included (host "
+          "clock)")
+    check(total < SCRIPT_S, f"chip_smoke took {total:.1f} s, not under "
+          f"{SCRIPT_S}")
 
     # the floors are models, not measurements: a line of their own
     print(json.dumps({"floors": [

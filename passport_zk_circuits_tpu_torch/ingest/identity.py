@@ -186,6 +186,23 @@ def query_arrays(lanes) -> dict:
     return out
 
 
+def lowering_inputs(lanes) -> dict:
+    """Lanes with roots -> the input dict of ``circuit/query_identity``'s
+    ``build``: per input a list of the lanes' Python values (``dg1`` bytes,
+    ``sk`` the sk_identity), ``siblings`` one such list a level, root side
+    first."""
+    if any(lane.root is None for lane in lanes):
+        raise ValueError("lowering_inputs: compute the roots first "
+                         "(with_roots)")
+    out = {"dg1": [lane.dg1 for lane in lanes],
+           "siblings": [list(level) for level in
+                        zip(*(lane.siblings for lane in lanes))]}
+    for name in _SCALARS + ["selector"]:
+        key = "sk" if name == "sk_identity" else name
+        out[key] = [getattr(lane, name) for lane in lanes]
+    return out
+
+
 def query_inputs(arrays: dict, device) -> QueryInputs:
     """Numpy QueryInputs fields -> the port's QueryInputs on `device`."""
     return QueryInputs(**{f: bn.to_tensor(arrays[f], device)

@@ -26,7 +26,8 @@ but ordered for a device that PyTorch drives one kernel launch at a time:
 
 A group holds as many windows as keep the first tree level's operands
 within ``BUDGET[curve]`` points (each point of a G1 unified add holds
-about 32 KB of int64 temporaries at its peak, a G2 one about 96 KB). The
+about 32 KB of int64 temporaries at its peak, a G2 one about 96 KB), and
+the table is built ``BUDGET[curve]`` points at a time. The
 MSM's value is a unique point, so its affine coordinates equal the JAX
 package's whatever the order of the additions. G2 runs the same code over
 ``ops/g2.G2Ctx``: the formulas touch the field only through the ctx.
@@ -99,7 +100,11 @@ def window_sums(px, py, scalars, curve: str = "bn254_g1"):
     lanes = math.prod(lshape)
     digs = _digits(scalars)                             # (nwin, *L, N)
     nwin = digs.shape[0]
-    tbl = _table(c, px, py)                             # (16, F.., N)
+    # the table's adds take at most `budget` points at a time, as the
+    # tree's first level does
+    tbl = torch.cat([_table(c, px[..., lo:lo + budget],
+                            py[..., lo:lo + budget])
+                     for lo in range(0, n, budget)], -1)  # (16, F.., N)
     coord = tuple(tbl.shape[1:-1])                      # (k[, 2], 3)
     flat = tbl.reshape(16, -1, n).transpose(0, 1).reshape(-1, 16 * n)
     del tbl

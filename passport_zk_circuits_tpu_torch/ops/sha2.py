@@ -160,7 +160,8 @@ def sha1_chunks(msg):
 
 def _k512_exact():
     """floor(cbrt(q) * 2^64) mod 2^64 for the first 80 primes q, by an
-    integer cube root of q * 2^192 (FIPS 180-4)."""
+    integer cube root of q * 2^192 (FIPS 180-4): Newton's iteration on
+    integers, from above, ends at the floor."""
     ks, primes, p = [], [], 2
     while len(primes) < 80:
         if all(p % q for q in primes):
@@ -168,11 +169,9 @@ def _k512_exact():
         p += 1
     for q in primes:
         n = q << 192
-        x = int(round(n ** (1 / 3)))
-        while x * x * x > n:
-            x -= 1
-        while (x + 1) ** 3 <= n:
-            x += 1
+        x = 1 << -(-n.bit_length() // 3)
+        while (y := (2 * x + n // (x * x)) // 3) < x:
+            x = y
         ks.append(x & 0xFFFFFFFFFFFFFFFF)
     return ks
 

@@ -156,6 +156,21 @@ def test_msm_g2_equals_host_msm_in_window_groups(monkeypatch):
         g16._msm_lanes_host(q, sc, 1, True)[0]
 
 
+def test_msm_g2_table_in_chunks_equals_host_msm(monkeypatch):
+    # a budget of 2 points: the table of 5 points is built in 3 chunks,
+    # each window group is one window
+    monkeypatch.setitem(msm.BUDGET, "bn254_g2", 2)
+    rng = random.Random(8)
+    n = 5
+    q, _ = g2.points_to_limbs([pr.ec_mul(pr.G2, rng.randrange(1, pr.R))
+                               for _ in range(n)])
+    sc = np.stack([bn.ints_to_limbs_batch(
+        [rng.randrange(pr.R) for _ in range(n)], 16)], axis=1)  # (16, 1, n)
+    x, y = msm.msm_affine(_t(q[0]), _t(q[1]), _t(sc), "bn254_g2")
+    assert g2.limbs_to_point(x[..., 0], y[..., 0]) == \
+        g16._msm_lanes_host(q, sc, 1, True)[0]
+
+
 def test_fixed_base_g1_equals_ints():
     rng = random.Random(6)
     ss = [rng.randrange(pr.R) for _ in range(6)] + [1, 2, pr.R - 1]

@@ -6,7 +6,7 @@ what the port is held against: inputs at batch 2, built by the JAX
 package's synthetic generator and builder from a fixed seed, and every
 output of ``register_identity.forward``.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos|query|prove]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos|query|prove|lowering]
 
 - ``tests/fixtures/torch_port_flagship_b2.npz``: the flagship config. Keys
   ``seed``, ``in_<PassportInputs field>``, ``in_sk_identity`` and
@@ -47,9 +47,27 @@ output of ``register_identity.forward``.
   The JAX gadget setup makes its 1,766 G2 points on the host; the whole
   target takes about an hour on 8 CPU cores.
 
-With no argument all four files are written.
+- ``tests/fixtures/torch_port_lowering.npz``: the RegisterIdentity R1CS
+  lowering (``circuit/register_identity.build``) of each config of
+  ``LOWERINGS`` at batch 1 on a synthetic passport of the JAX package's
+  generator (seed ``LOWERING_SEED`` plus the config's index), finalized
+  with the four public outputs in the order of ``LOWERING_PUBLIC``. Key
+  ``configs`` lists the config names; each config's arrays carry the
+  prefix ``c<SIG_ALGO>_``: ``seed``, ``n_vars``, ``n_constraints``,
+  ``n_public``, ``nnz`` (the entries of A, B and C), ``public`` (the
+  public values as 16-bit limbs) and ``digest_<part>``, the SHA-256 of
+  each part that ``r1cs_digests`` serializes (the triplets of A, B and
+  C, the labels, the witness matrix): a 514 k-row system's triplets would
+  not fit a small file. ECDSA is lowered over p256 only, whose generator
+  table the JAX package ships; on another curve its lowering would write
+  a table file into the JAX package's tree. The target takes about 8
+  minutes in one process.
+
+With no argument all five files are written.
 """
 
+import hashlib
+import json
 import os
 import pathlib
 import random
@@ -81,6 +99,17 @@ QUERY_OUT = ROOT / "tests" / "fixtures" / "torch_port_query_b2.npz"
 PROVE_SEED = 20250
 PROVE_OUT = ROOT / "tests" / "fixtures" / "torch_port_prove_b2.npz"
 LIGHT_CONFIGS = ((3, 256), (3, 384), (1, 256))      # (document type, hash)
+LOWERINGS = (
+    FLAGSHIP,                                        # RSA-2048, SHA-256
+    "registerIdentity_3_160_3_4_600_248_0_0_1_0",    # RSA, SHA-1
+    "registerIdentity_11_256_3_4_600_248_0_0_1_0",   # RSA-PSS, SHA-256
+    "registerIdentity_13_384_3_4_504_248_0_0_1_0",   # RSA-PSS, SHA-384
+    "registerIdentity_20_256_3_4_600_248_0_0_1_0",   # ECDSA p256, SHA-256
+)
+LOWERING_SEED = 20251
+LOWERING_PUBLIC = ("dg15_pubkey_hash", "passport_hash", "dg1_commitment",
+                   "pk_identity_hash")
+LOWERING_OUT = ROOT / "tests" / "fixtures" / "torch_port_lowering.npz"
 
 
 def tag(name: str) -> str:
@@ -337,13 +366,63 @@ def prove_arrays(seed: int) -> dict:
     return arrays
 
 
+def r1cs_digests(b) -> dict:
+    """SHA-256 hex digests of a finalized circuit builder's parts: for m in
+    a, b, c its triplets (rows and columns as little-endian int64 pairs,
+    then the coefficients as 32-byte little-endian ints), its labels (the
+    JSON of the (wire, label) pairs in wire order) and its witness matrix
+    (the uint32 array's bytes). Either package's builder goes in."""
+    out = {}
+    for m in ("a", "b", "c"):
+        mat = getattr(b.cs, m)
+        h = hashlib.sha256(np.array([(r, c) for r, c, _ in mat],
+                                    "<i8").reshape(-1, 2).tobytes())
+        h.update(b"".join(v.to_bytes(32, "little") for _, _, v in mat))
+        out[m] = h.hexdigest()
+    out["labels"] = hashlib.sha256(json.dumps(
+        sorted(b.cs.labels.items())).encode()).hexdigest()
+    w = np.ascontiguousarray(b.witness_matrix(), "<u4")
+    out["witness"] = hashlib.sha256(w.tobytes()).hexdigest()
+    return out
+
+
+def lowering_passport(synthetic, p, seed: int) -> dict:
+    """The one synthetic passport of a lowering case, from ``synthetic``
+    (either package's ingest/synthetic: they draw the same passports)."""
+    return synthetic.make_synthetic_passport(p, random.Random(seed))
+
+
+def lowering_arrays(name: str, seed: int) -> dict:
+    """The JAX package's RegisterIdentity lowering of `name` at batch 1,
+    finalized with LOWERING_PUBLIC: sizes, public values and digests."""
+    from passport_zk_circuits_tpu.circuit import register_identity as cri
+    from passport_zk_circuits_tpu.ingest import synthetic
+    from passport_zk_circuits_tpu.models.params import CircuitParams
+
+    p = CircuitParams.from_name(name)
+    pp = lowering_passport(synthetic, p, seed)
+    b, outs = cri.build(p, [pp])
+    pub = b.finalize([outs[k] for k in LOWERING_PUBLIC])
+    want = synthetic.expected_outputs(p, pp)
+    assert pub == [[want[k]] for k in LOWERING_PUBLIC], name
+    arrays = {"seed": np.array(seed), "n_vars": np.array(b.cs.n_vars),
+              "n_constraints": np.array(b.cs.n_constraints),
+              "n_public": np.array(b.n_public),
+              "nnz": np.array([len(b.cs.a), len(b.cs.b), len(b.cs.c)]),
+              "public": np.array([[_limbs(v) for v in vals] for vals in pub],
+                                 np.uint32)}
+    for part, digest in r1cs_digests(b).items():
+        arrays[f"digest_{part}"] = np.array(digest)
+    return arrays
+
+
 def save(path: pathlib.Path, arrays: dict) -> None:
     os.makedirs(path.parent, exist_ok=True)
     np.savez_compressed(path, **arrays)
     print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
-def main(which=("flagship", "algos", "query", "prove")):
+def main(which=("flagship", "algos", "query", "prove", "lowering")):
     import jax
     jax.config.update("jax_platforms", "cpu")
     if "flagship" in which:
@@ -359,7 +438,16 @@ def main(which=("flagship", "algos", "query", "prove")):
         save(QUERY_OUT, query_arrays(QUERY_SEED))
     if "prove" in which:
         save(PROVE_OUT, prove_arrays(PROVE_SEED))
+    if "lowering" in which:
+        arrays = {"configs": np.array(LOWERINGS)}
+        for i, name in enumerate(LOWERINGS):
+            for k, v in lowering_arrays(name, LOWERING_SEED + i).items():
+                arrays[tag(name) + k] = v
+            print(f"{name}: {int(arrays[tag(name) + 'n_constraints'])} "
+                  "constraints, done", flush=True)
+        save(LOWERING_OUT, arrays)
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("flagship", "algos", "query", "prove"))
+    main(tuple(sys.argv[1:])
+         or ("flagship", "algos", "query", "prove", "lowering"))
