@@ -46,7 +46,20 @@ launch counter set to 0 just before it and read just after:
 * Groth16 on the flagship RegisterIdentity circuit at its real size
   (511,677 wires, 514,800 constraints, domain 524,288), batch 1: the
   witness step's forward above (K1's many-message entry, K2-K4, K5's
-  affine entry) gives the public values of its lane 2.
+  affine entry) gives the public values of its lane 2;
+* the user's path, ``api``: 1,024 passports whose SODs are built by
+  ``ingest/passport.build_sod`` and read back by ``api.ingest`` against
+  a 256-certificate master list (``ingest/masterlist``), then
+  ``api.compile`` and ``api.generate_witness`` on the card
+  (registerIdentity_1_256_3_2_336_232_1_544_3_256: K1's many-message
+  entry, K2-K4 with live levels, K5's affine entry), and SIG_ALGO 11
+  (RSA-PSS) and 20 (ECDSA P-256) at batch 64 the same way;
+* the primitives the JAX package leaves to XLA, plain PyTorch here:
+  Keccak-256 / SHA3-256 and the Ethereum address, Poseidon2 and secp256k1
+  ecrecover, at batch 1024;
+* the sharding: ``entry.dryrun_multichip`` over the machine's cards and
+  ``parallel/distributed.throughput_harness`` in a NCCL world of one
+  spawned process a card (the flagship at batch 1024 a rank).
 
 The script
 
@@ -101,8 +114,7 @@ The script
    samples of 512 and 12,289 G1 points (the second in two window groups
    of unequal size) and 64 G2 points, two proves timed by stage that must
    be equal, verify in the pool (both lanes true, a wrong input false), the
-   phase under 300 s; the profiler's session holds one warm G1 MSM, the
-   12,289-point sample (CUDA kernels, device time, idle share);
+   phase under 300 s;
    then phase prove_query (QueryIdentity TD3 at batch 2, two lanes of
    18-24 live levels: the circuit's size and its public values against
    the card's Query forward, check_batched with the q_root wire of lane 0
@@ -114,6 +126,19 @@ The script
    a tampered private wire, setup with each MSM's window groups, one cold
    prove timed by stage, verify in the pool, the peak device memory; under
    600 s); the whole script must end within 1,200 s;
+   phases ingest, primitives and multichip (after chain, their host
+   inputs and oracles built from the pool's start in a pool of their own,
+   INGEST_WORKERS processes): every lane of the api path against the
+   oracles, lane 1's flipped signature bit failing sig_ok alone, a signer
+   outside the master list refused (KeyError), the launch counters, K1
+   against its plain version at the ingested config's block counts, K4's
+   live levels a lane; every lane of Keccak-256 (keccak_ref), SHA3-256
+   (hashlib), the address, Poseidon2 (poseidon_ref) and ecrecover (each
+   signer's key; s + 1 another key, r = 0 refused), one warm call of
+   each; dryrun_multichip and the NCCL harness, every witness valid; the
+   SIG_ALGO 1 and 11 api forwards (PROFILED_API) and each primitive's
+   call join the profiler's session (their CUDA kernels and device time,
+   K4's on the master-list proofs);
 6. times a few chained steps (each step's sk_identity derived from the
    previous outputs);
 7. runs the field-muls/s path (K6-K8 must launch) and the probe battery
@@ -126,17 +151,23 @@ Any failed check raises, and the script exits non-zero.
 """
 
 import dataclasses
+import hashlib
 import json
 import multiprocessing
 import os
 import random
+import socket
 import subprocess
 import sys
+import threading
 import time
+from queue import Empty
 
 import numpy as np
 import torch
 
+from passport_zk_circuits_tpu_torch import api
+from passport_zk_circuits_tpu_torch import entry
 from passport_zk_circuits_tpu_torch.circuit import query_identity
 from passport_zk_circuits_tpu_torch.circuit import register_identity
 from passport_zk_circuits_tpu_torch.circuit import register_light
@@ -144,6 +175,7 @@ from passport_zk_circuits_tpu_torch.circuit.builder import Builder
 from passport_zk_circuits_tpu_torch.groth16 import pairing as g16pr
 from passport_zk_circuits_tpu_torch.groth16 import protocol as g16p
 from passport_zk_circuits_tpu_torch.ingest import builder, identity, synthetic
+from passport_zk_circuits_tpu_torch.ingest import masterlist, passport, x509
 from passport_zk_circuits_tpu_torch.models import params
 from passport_zk_circuits_tpu_torch.models import passport_verification as pv
 from passport_zk_circuits_tpu_torch.models import query_identity as qi
@@ -159,19 +191,27 @@ from passport_zk_circuits_tpu_torch.ops import cuda_poseidon
 from passport_zk_circuits_tpu_torch.ops import cuda_probe
 from passport_zk_circuits_tpu_torch.ops import cuda_rsa
 from passport_zk_circuits_tpu_torch.ops import cuda_sha2
+from passport_zk_circuits_tpu_torch.ops import ecrecover
 from passport_zk_circuits_tpu_torch.ops import field as fr
 from passport_zk_circuits_tpu_torch.ops import g2
+from passport_zk_circuits_tpu_torch.ops import keccak
 from passport_zk_circuits_tpu_torch.ops import msm
 from passport_zk_circuits_tpu_torch.ops import poseidon as pos
+from passport_zk_circuits_tpu_torch.ops import poseidon2
 from passport_zk_circuits_tpu_torch.ops import rsa
 from passport_zk_circuits_tpu_torch.ops import sha2
 from passport_zk_circuits_tpu_torch.ops import smt
+from passport_zk_circuits_tpu_torch.ops.curves import CURVES
+from passport_zk_circuits_tpu_torch.parallel import distributed
 from passport_zk_circuits_tpu_torch.r1cs import system as r1
 from passport_zk_circuits_tpu_torch.tools import microbench_field
 from passport_zk_circuits_tpu_torch.tools import probe_nvcc
 from passport_zk_circuits_tpu_torch.utils import babyjubjub_ref as bref
+from passport_zk_circuits_tpu_torch.utils import ecdsa_ref
+from passport_zk_circuits_tpu_torch.utils import keccak_ref
 from passport_zk_circuits_tpu_torch.utils import poseidon_ref as pref
 from passport_zk_circuits_tpu_torch.utils import profiling
+from passport_zk_circuits_tpu_torch.utils import rsa_keygen
 from passport_zk_circuits_tpu_torch.utils.constants.countries import COUNTRIES
 
 FLAGSHIP = "registerIdentity_1_256_3_4_600_248_1_1496_3_256"
@@ -550,21 +590,34 @@ def device_profile(forwards):
         for _, fn, _ in PROFILED + PROFILED:
             fn()
             torch.cuda.synchronize()
-    events = prof.events()
-    cpu = [ev for ev in events
-           if ev.device_type == torch.autograd.DeviceType.CPU]
-    # the device side of a record_function range is an annotation, not a
-    # kernel
-    kernels = sorted((ev for ev in events
-                      if ev.device_type == torch.autograd.DeviceType.CUDA
-                      and not ev.name.startswith(("Memcpy", "Memset",
-                                                  "chip_smoke:"))),
-                     key=lambda ev: ev.time_range.start)
-    # a launch and its kernel record share the launch's correlation id
-    launch_of = {ev.id: ev for ev in cpu if ev.name.startswith("cu")}
-    lost = ({ev.id for ev in cpu
-             if ev.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
-            - {ev.id for ev in kernels})
+    # the session's raw records, read once (building the profiler's
+    # FunctionEvent tree over a few million records took minutes)
+    cpu_dev = torch.autograd.DeviceType.CPU
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    ranges, launch_at, launched, kernels = {}, {}, set(), []
+    for ev in prof.profiler.kineto_results.events():
+        if getattr(ev, "is_hidden_event", lambda: False)():
+            continue                # as the profiler's own reading skips
+        name, kind = ev.name(), ev.device_type()
+        if kind == cpu_dev:
+            if name.startswith("chip_smoke:"):
+                ranges[name.removeprefix("chip_smoke:")] = (ev.start_ns(),
+                                                            ev.end_ns())
+            elif name.startswith("cu"):
+                # a launch and its kernel record share the correlation id
+                launch_at[ev.correlation_id()] = ev.start_ns()
+                if name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                    launched.add(ev.correlation_id())
+        elif kind == cuda_dev and not name.startswith(
+                ("Memcpy", "Memset", "chip_smoke:")):
+            # the device side of a record_function range is an annotation,
+            # not a kernel
+            if name.startswith("_Z"):
+                name = torch._C._demangle(name)
+            kernels.append((ev.start_ns(), ev.duration_ns() / 1e3, name,
+                            ev.correlation_id()))
+    kernels.sort(key=lambda k: k[0])
+    lost = launched - {k[3] for k in kernels}
     check(not lost, f"profiler lost the kernel records of {len(lost)} "
           "launch(es)")
     expected = [s for _, _, symbols in PROFILED for s in symbols]
@@ -576,35 +629,30 @@ def device_profile(forwards):
                             kernels[-2 * n_short:-n_short],
                             kernels[-n_short:])
     for got in (warm, short):
-        names = [kernel_symbol(ev.name) for ev in got]
+        names = [kernel_symbol(k[2]) for k in got]
         check(names == expected, f"profiler's short kernels {names}, not "
               f"{expected}")
     for e, _, symbols in PROFILED:
         n = len(symbols)
-        e["profiler_device_us"] = [ev.time_range.elapsed_us()
-                                   for ev in short[:n]]
+        e["profiler_device_us"] = [k[1] for k in short[:n]]
         short = short[n:]
         print(f"  {e['name']}: {n} launch(es), device "
               f"{sum(e['profiler_device_us']):.3f} us (torch.profiler; "
               f"{', '.join(sorted(set(symbols)))})")
-    ranges = {ev.name.removeprefix("chip_smoke:"): ev.time_range
-              for ev in cpu if ev.name.startswith("chip_smoke:")}
     check(sorted(ranges) == sorted(wall_ms), f"profiler ranges {ranges}")
     stats = {label: {"kernels": 0, "device_us": 0.0, "by_kernel": {}}
              for label in wall_ms}
-    for k in forward:
-        launch = launch_of.get(k.id)
-        check(launch is not None, f"kernel {k.name} without its launch")
-        t = launch.time_range.start
-        label = next((lb for lb, r in ranges.items()
-                      if r.start <= t <= r.end), None)
-        check(label is not None, f"kernel {k.name} launched outside the "
+    for start, us, kname, corr in forward:
+        t = launch_at.get(corr)
+        check(t is not None, f"kernel {kname} without its launch")
+        label = next((lb for lb, (lo, hi) in ranges.items()
+                      if lo <= t <= hi), None)
+        check(label is not None, f"kernel {kname} launched outside the "
               "forwards")
         st = stats[label]
-        us = k.time_range.elapsed_us()
         st["kernels"] += 1
         st["device_us"] += us
-        name = KERNEL_OF_SYMBOL.get(kernel_symbol(k.name))
+        name = KERNEL_OF_SYMBOL.get(kernel_symbol(kname))
         if name:
             n, t_us = st["by_kernel"].get(name, (0, 0.0))
             st["by_kernel"][name] = (n + 1, t_us + us)
@@ -1321,6 +1369,16 @@ def pool_map(pool, fn, items, *args, chunk=32):
     return [x for part in parts for x in part]
 
 
+def timed_call(fn):
+    """Host-clock ms of one call of fn, fenced by synchronizes (fn ran
+    once before: a warm call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def warm_ms(fn, reps=3):
     """Mean host-clock ms of fn, each call fenced by a synchronize, after
     one warm-up call."""
@@ -1511,6 +1569,575 @@ def phase_chain(dev, rng, entries, pool, pps, inp, out):
           f"the nullifier equals the oracle on {len(lanes_s)} lanes")
 
 
+# -- the user's path (api), the primitives and the devices' sharding ----------
+
+INGEST_SIGNERS = 16             # RSA-2048 document signers, 64 passports each
+INGEST_CERTS = 256              # the master list: 16 RSA + 240 ECDSA
+INGEST_SMALL = 64               # the SIG_ALGO 11 and 20 api paths' batch
+INGEST_ALGOS = {"rsa-pss (api)": (11, "rsa-pss"),
+                "ecdsa p256 (api)": (20, "ecdsa")}
+INGEST_WITH_CERT = 4            # ECDSA lanes that carry a DS certificate
+INGEST_WORKERS = 2              # the pool that builds these inputs
+KECCAK_LENGTHS = (0, 1, 55, 135, 136, 137, 200, 271, 272, 300)
+ECRECOVER_KEYS = 16
+P2_SPONGE = (1, 2, 3, 4, 5)
+P2_LEAVES = 16
+MULTICHIP_S = 300               # the ranks' start and their harness
+# the api forwards that join the profiler's session with every primitive's
+# call: the SIG_ALGO 20 forward would add the ECDSA path's ~210,000 kernels
+# again, and the session's records cost it time
+PROFILED_API = ("ingest (api)", "rsa-pss (api)")
+
+
+class ProofCache:
+    """A master list whose proofs are computed once a key: every passport
+    of one signer asks the tree for the same proof (SparseMerkleTree.prove
+    hashes the whole tree off the path, ~0.4 s a call in Python)."""
+
+    def __init__(self, tree):
+        self.tree = tree
+        self.proofs = {}
+
+    def prove(self, key):
+        if key not in self.proofs:
+            self.proofs[key] = self.tree.prove(key)
+        return self.proofs[key]
+
+
+def _rsa_key(bits, seed):
+    """An RSA key of bits from its own seed (run in a pool's worker)."""
+    return rsa_keygen.gen_rsa_key(bits, random.Random(seed))
+
+
+def _ec_certs(csca, seeds):
+    """ECDSA DS certificates, P-256 and brainpoolP256r1 in turns, issued
+    by the CSCA key (run in a pool's worker)."""
+    out = []
+    for s in seeds:
+        name = ("p256", "brainpoolP256r1")[s % 2]
+        _, (qx, qy) = ecdsa_ref.keygen(CURVES[name], random.Random(s))
+        out.append(x509.build_certificate(x509.ec_spki(name, qx, qy),
+                                          f"DS-{s}", "CSCA", csca,
+                                          serial=s))
+    return out
+
+
+def _master_list(certs):
+    """build_master_list over the certificates, its root computed (run in
+    a pool's worker: the tree travels back with its root)."""
+    tree = masterlist.build_master_list(certs)
+    tree.root()
+    return tree
+
+
+def flip_signature_bit(sod, signature: int, key_bytes: int):
+    """The SOD with the lowest bit of its RSA signature flipped."""
+    at = sod.index(signature.to_bytes(key_bytes, "big")) + key_bytes - 1
+    return sod[:at] + bytes([sod[at] ^ 1]) + sod[at + 1:]
+
+
+def _ingest_chunk(lanes, dg1s, signer, aa, tree, tampered):
+    """SIG_ALGO 1 passports of one signer through the user's path (run in
+    a pool's worker): DG15 of the AA key, build_sod, a flipped signature
+    bit on the lanes in tampered, api.ingest against the master list; the
+    oracles' four outputs. Returns [(params, witness, outputs)], seconds."""
+    t0 = time.perf_counter()
+    dg15 = passport.build_dg15_rsa(aa[0])
+    proofs = ProofCache(tree)
+    out = []
+    for lane, dg1 in zip(lanes, dg1s):
+        sod, _ = passport.build_sod(dg1, dg15, 1, 256,
+                                    random.Random(SEED * 7919 + lane),
+                                    signer_key=signer)
+        if lane in tampered:
+            sod = flip_signature_bit(sod, passport.parse_sod(sod)[
+                "signature"], 256)
+        p, w = api.ingest(dg1, dg15, sod, master_list=proofs)
+        out.append((p, w, synthetic.expected_outputs(p, w)))
+    return out, time.perf_counter() - t0
+
+
+def _algo_chunk(sig, lanes, dg1s, signer, tampered):
+    """SIG_ALGO sig (11: RSA-PSS, 20: ECDSA P-256) passports without DG15
+    through build_sod and api.ingest (the fabricated one-leaf SMT), the
+    first INGEST_WITH_CERT ECDSA lanes with a DS certificate (it draws an
+    RSA-2048 key), the rest with the bare SPKI; a flipped bit of the
+    signature (s for ECDSA) on the lanes in tampered (run in a pool's
+    worker). Returns [(params, witness, outputs)]."""
+    out = []
+    for lane, dg1 in zip(lanes, dg1s):
+        rng = random.Random(SEED * 104729 + sig * 4096 + lane)
+        sod, _ = passport.build_sod(
+            dg1, None, sig, 256, rng, signer_key=signer,
+            with_certificate=sig != 20 or lane < INGEST_WITH_CERT)
+        p, w = api.ingest(dg1, None, sod, aa_algo=0)
+        if lane in tampered:
+            s = w["signature"]
+            w = dict(w, signature=(s[0], s[1] ^ 1) if isinstance(s, tuple)
+                     else s ^ 1)
+        out.append((p, w, synthetic.expected_outputs(p, w)))
+    return out
+
+
+def _keccak_oracles(msgs):
+    """keccak_ref's Keccak-256 of each message (run in a pool's worker)."""
+    return [keccak_ref.keccak256(m) for m in msgs]
+
+
+def _ecrecover_case(keys, lanes):
+    """One signature a lane over SHA-256 of the lane's message, by key
+    lane % len(keys), R's x below n (run in a pool's worker): [(r, s,
+    v_odd, digest)]."""
+    cv = CURVES["secp256k1"]
+    out = []
+    for lane in lanes:
+        d, _ = keys[lane % len(keys)]
+        rng = random.Random(SEED * 15485863 + lane)
+        dg = hashlib.sha256(lane.to_bytes(4, "big")).digest()
+        h = int.from_bytes(dg, "big")
+        while True:
+            k = rng.randrange(1, cv.n)
+            R = ecdsa_ref.scalar_mul(cv, k, (cv.gx, cv.gy))
+            r, s = R[0] % cv.n, pow(k, -1, cv.n) * (h + R[0] * d) % cv.n
+            if r and s and R[0] < cv.n:
+                out.append((r, s, R[1] & 1, dg))
+                break
+    return out
+
+
+def _poseidon2_oracles(cols, sponge_ins, leaves):
+    """utils/poseidon_ref's Poseidon2 of some lanes (run in a pool's
+    worker): permutation of (cols[0], cols[1], cols[2]), compression of
+    (cols[0], cols[1]), the sponge of each prefix length in P2_SPONGE and
+    the Merkle root of the leaves."""
+    out = []
+    for j in range(len(cols[0])):
+        a, b, c = (col[j] for col in cols)
+        level = [lf[j] for lf in leaves]
+        while len(level) > 1:
+            level = [pref.poseidon2_compression(x, y)
+                     for x, y in zip(level[0::2], level[1::2])]
+        out.append((pref.poseidon2_permutation([a, b, c]),
+                    pref.poseidon2_compression(a, b),
+                    [pref.poseidon2_sponge([x[j] for x in sponge_ins[:n]])
+                     for n in P2_SPONGE], level[0]))
+    return out
+
+
+def host_work(pool, batch, small, result):
+    """The new phases' host inputs, built in pool (its own workers) from
+    the pool's start while the card runs the earlier phases; run on a
+    thread of the main process, which only waits. Fills result with the
+    keys, the master list, the ingested lanes of each path and their
+    oracles, the primitives' inputs and oracles, and the seconds each
+    stage took (host clock)."""
+    try:
+        t0 = time.perf_counter()
+        rng = random.Random(SEED)
+        per = batch // INGEST_SIGNERS
+        specs = ([(2048, SEED * 31 + i) for i in range(INGEST_SIGNERS + 1)]
+                 + [(1024, SEED * 37 + i) for i in range(INGEST_SIGNERS)])
+        keys = pool.starmap(_rsa_key, specs, chunksize=1)
+        csca, signers = keys[0], keys[1:INGEST_SIGNERS + 1]
+        aas = keys[INGEST_SIGNERS + 1:]
+        result["keys_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        n_ec = INGEST_CERTS - INGEST_SIGNERS
+        seeds = list(range(SEED * 1000, SEED * 1000 + n_ec))
+        ec = pool.starmap(_ec_certs, [(csca, seeds[i:i + 16])
+                                      for i in range(0, n_ec, 16)])
+        certs = [x509.build_certificate(x509.rsa_spki(n, e), f"DS-RSA-{i}",
+                                        "CSCA", csca, serial=i + 1)
+                 for i, (n, e, _) in enumerate(signers)]
+        certs += [c for part in ec for c in part]
+        tree = pool.apply(_master_list, (certs,))
+        result.update(csca=csca, signers=signers, tree=tree,
+                      certs_s=time.perf_counter() - t1)
+        # the register path: dg1s from random.Random(SEED), lane 1 tampered
+        t2 = time.perf_counter()
+        dg1s = [bytes(rng.randrange(256) for _ in range(93))
+                for _ in range(batch)]
+        jobs = [pool.apply_async(_ingest_chunk, (
+            list(range(i * per, (i + 1) * per)), dg1s[i * per:(i + 1) * per],
+            signers[i], aas[i], tree, {1})) for i in range(INGEST_SIGNERS)]
+        small_dg1s = [bytes(rng.randrange(256) for _ in range(93))
+                      for _ in range(small)]
+        algo_jobs = {path: [pool.apply_async(_algo_chunk, (
+            sig, list(range(i, min(small, i + 16))),
+            small_dg1s[i:i + 16], signers[0] if sig == 11 else None, {1}))
+            for i in range(0, small, 16)]
+            for path, (sig, _) in INGEST_ALGOS.items()}
+        parts = [j.get() for j in jobs]
+        result["ingest"] = [lane for part, _ in parts for lane in part]
+        result["ingest_s"] = time.perf_counter() - t2
+        result["ingest_cpu_s"] = sum(s for _, s in parts)
+        result["algos"] = {path: [lane for j in js for lane in j.get()]
+                           for path, js in algo_jobs.items()}
+        # the primitives
+        t3 = time.perf_counter()
+        nrng = np.random.default_rng(SEED)
+        msgs = {n: [bytes(r) for r in nrng.integers(0, 256, (batch, n),
+                                                     dtype=np.uint8)]
+                for n in KECCAK_LENGTHS}
+        kec = {n: pool.apply_async(_keccak_oracles, (msgs[n],))
+               for n in KECCAK_LENGTHS}
+        eckeys = [ecdsa_ref.keygen(CURVES["secp256k1"],
+                                   random.Random(SEED * 257 + i))
+                  for i in range(ECRECOVER_KEYS)]
+        pks = [q[0].to_bytes(32, "big") + q[1].to_bytes(32, "big")
+               for _, q in eckeys]
+        sigs = pool.starmap_async(_ecrecover_case, [
+            (eckeys, list(range(i, min(batch, i + 128))))
+            for i in range(0, batch, 128)])
+        fr_col = lambda: [rng.randrange(pref.P)  # noqa: E731
+                          for _ in range(batch)]
+        cols = [fr_col() for _ in range(3)]
+        sponge_ins = [fr_col() for _ in range(max(P2_SPONGE))]
+        leaves = [fr_col() for _ in range(P2_LEAVES)]
+        p2 = pool.starmap_async(_poseidon2_oracles, [
+            ([c[i:i + 64] for c in cols], [x[i:i + 64] for x in sponge_ins],
+             [lf[i:i + 64] for lf in leaves]) for i in range(0, batch, 64)])
+        result.update(
+            msgs=msgs, keccak={n: j.get() for n, j in kec.items()},
+            eckeys=eckeys, pks=pks,
+            eth=[keccak_ref.eth_address(pk) for pk in pks],
+            sigs=[x for part in sigs.get() for x in part],
+            p2_in=(cols, sponge_ins, leaves),
+            p2=[x for part in p2.get() for x in part],
+            primitives_s=time.perf_counter() - t3)
+        result["total_s"] = time.perf_counter() - t0
+    except BaseException as exc:          # re-raised on the main thread
+        result["error"] = exc
+
+
+def host_result(job, result, what):
+    """Wait for host_work and return its result; its failure fails the
+    run."""
+    t0 = time.perf_counter()
+    job.join()
+    if "error" in result:
+        raise result["error"]
+    print(f"  {what}: waited {time.perf_counter() - t0:.1f} s for the "
+          "host inputs")
+    return result
+
+
+def live_levels(witnesses):
+    """The non-zero siblings of each lane's master-list proof."""
+    return [sum(1 for s in w["slave_branches"] if s) for w in witnesses]
+
+
+def check_outputs(label, out, want, sig_fail=(1,)):
+    """Every lane's four public outputs against the oracles; flow_ok and
+    smt_ok true on every lane, sig_ok false exactly on sig_fail."""
+    flow, sig, smt_ok = (out[k].cpu() for k in ("flow_ok", "sig_ok",
+                                                "smt_ok"))
+    check(bool(flow.all() and smt_ok.all()),
+          f"{label}: flow_ok / smt_ok not all true")
+    bad = [i for i, v in enumerate(sig.tolist()) if not v]
+    check(bad == list(sig_fail), f"{label}: sig_ok false on lanes {bad}, "
+          f"not {list(sig_fail)}")
+    for key in PUBLIC:
+        check(fr.batch_from_limbs(out[key]) == [w[key] for w in want],
+              f"{label}: {key} != oracle")
+    print(f"  {label}: every lane's four public outputs equal the oracles; "
+          f"sig_ok false on lane(s) {list(sig_fail)} only")
+
+
+def phase_ingest(dev, entries, job, host):
+    """The user's path at batch 1024: 1,024 TD3 passports (dg1s from
+    random.Random(SEED)) of 16 RSA-2048 signers and 16 RSA-1024 AA keys,
+    each SOD built by passport.build_sod and read back by api.ingest
+    against a master list of 256 certificates (the 16 signers' and 240
+    ECDSA ones, build_master_list), all built in the ingest pool from its
+    start; lane 1's SOD has a flipped signature bit. api.compile, then
+    api.generate_witness on the card with the launch counters zeroed just
+    before and read just after (K1's many-message entry, K2-K4, K5's
+    affine entry must launch; K1's per-message entry and K5's extended one
+    must not). Every lane's outputs against the oracles (the pool's),
+    the verdicts, K1 against its plain version at this config's block
+    counts, a signer not in the list refused by KeyError, one warm forward
+    timed. Then SIG_ALGO 11 and 20 at batch 64 through the same path.
+    Returns {label: (circuit, witnesses)} for the profiler's session."""
+    res = host_result(job, host, "ingest")
+    lanes = res["ingest"]
+    params0 = lanes[0][0]
+    check(all(p == params0 for p, _, _ in lanes),
+          "ingest: the lanes' circuit parameters differ")
+    wits = [w for _, w, _ in lanes]
+    live = live_levels(wits)
+    print(f"  ingest: {len(lanes)} passports of {params0.name} (the "
+          f"flagship is {FLAGSHIP}); keys {res['keys_s']:.1f} s, "
+          f"certificates and master list {res['certs_s']:.1f} s, build_sod"
+          f" + api.ingest + oracles {res['ingest_s']:.1f} s "
+          f"({res['ingest_cpu_s']:.1f} s of worker time) in the pool "
+          f"({INGEST_WORKERS} workers, host); master list of "
+          f"{len(res['tree'].leaves)} certificates, root "
+          f"{res['tree'].root():#x}; K4's live levels a lane "
+          f"{min(live)}-{max(live)}")
+    check(len(res["tree"].leaves) == INGEST_CERTS,
+          "master list does not hold every certificate")
+    check(all(w["slave_root"] == res["tree"].root() for w in wits),
+          "ingest: a lane's slave root is not the master list's")
+    check(min(live) > 0, "ingest: a lane's proof has no live level")
+    # a signer not in the list: the CSCA key signs a passport
+    stray, _ = passport.build_sod(wits[0]["dg1"], None, 1, 256,
+                                  random.Random(SEED), signer_key=res["csca"])
+    try:
+        api.ingest(wits[0]["dg1"], None, stray, aa_algo=0,
+                   master_list=res["tree"])
+        check(False, "ingest: a signer outside the master list was taken")
+    except KeyError:
+        print("  ingest: a passport of a signer not in the master list "
+              "raises KeyError")
+
+    circuit = api.compile(params0)
+    check(circuit.device.type == "cuda", "api.compile did not pick the card")
+    out = run_path("ingest (api)", entries, WITNESS_KERNELS,
+                   lambda: api.generate_witness(circuit, wits), off=OFF_PATH)
+    check(cuda_sha2.sha2_32_chunks_many.launches == 1,
+          "ingest: the step's messages were not hashed in one K1 launch")
+    check_outputs("ingest (api)", out, [o for _, _, o in lanes])
+    k1_at_ingest_shapes(entries, circuit, wits)
+    ms = warm_ms(lambda: api.generate_witness(circuit, wits))
+    print(f"  ingest (api): one warm api.generate_witness {ms:.2f} ms (host "
+          f"clock, mean of 3; inputs built from the witness dicts inside), "
+          f"batch {len(wits)}; card: {CARD['name']}")
+    runs = {"ingest (api)": (circuit, wits)}
+    for label, (sig, algo_path) in INGEST_ALGOS.items():
+        got = res["algos"][label]
+        p = got[0][0]
+        check(all(q == p for q, _, _ in got), f"{label}: params differ")
+        c = api.compile(p)
+        _, on, off = ALGO_PATHS[algo_path]
+        w = [x for _, x, _ in got]
+        out = run_path(f"{label}: {p.name}", entries, on,
+                       lambda: api.generate_witness(c, w), off=off)
+        check_outputs(label, out, [o for _, _, o in got])
+        ms = timed_call(lambda: api.generate_witness(c, w))
+        print(f"  {label}: one warm api.generate_witness {ms:.2f} ms (host "
+              f"clock), batch {len(w)}; card: {CARD['name']}")
+        runs[label] = (c, w)
+    return runs
+
+
+def k1_at_ingest_shapes(entries, circuit, wits):
+    """K1's many-message entry at the ingested config's block counts (the
+    step's messages: dg1, dg15, ec, sa) against its plain version on the
+    same CUDA tensors, and each digest against hashlib on sampled lanes;
+    recorded in K1's entry as ingest_path."""
+    pp = builder.build_register_inputs(circuit.params, wits,
+                                       circuit.device).passport
+    msgs = [pp.dg1_words, pp.dg15_words, pp.ec_words, pp.sa_words]
+    nbs = [m.shape[0] // 16 for m in msgs]
+    algos = [256] * 4
+    outs, e = compare(
+        "sha2_32_chunks_many",
+        lambda: cuda_sha2.sha2_32_chunks_many(msgs, algos),
+        lambda: cuda_sha2.sha2_32_chunks_many_plain(msgs, algos),
+        nbytes=8 * sum(m.numel() + 8 * m.shape[1] for m in msgs),
+        int_ops=sum(nbs) * OPS_SHA_BLOCK * msgs[0].shape[1])
+    for lane in sampled_lanes(len(wits)):
+        w = wits[lane]
+        for key, d in zip(("dg1", "dg15", "ec", "sa"), outs):
+            check(words_to_bytes(d[:, lane].tolist()) ==
+                  hashlib.sha256(w[key]).digest(),
+                  f"K1 at the ingest shapes: {key} lane {lane} != hashlib")
+    e["shape"] = (f"SHA-256, B={len(wits)}, {circuit.params.name}'s four "
+                  f"messages nb={','.join(map(str, nbs))} in one launch")
+    next(x for x in entries if x["name"] == "sha2_32_chunks_many")[
+        "ingest_path"] = e
+    print(f"  K1 at {e['shape']}: bit-equal to its plain version and "
+          "hashlib")
+
+
+def _bytes_of(out):
+    d = torch.stack(out).cpu()
+    return [bytes(d[:, j].tolist()) for j in range(d.shape[1])]
+
+
+def phase_primitives(dev, job, host):
+    """Keccak-256 and SHA3-256 at batch 1024 on messages of 0-300 bytes
+    (across the 136-byte rate), every lane against hashlib.sha3_256 and
+    utils/keccak_ref (and the two vectors of tests/test_keccak.py); the
+    Ethereum address of 1024 secp256k1 keys; Poseidon2 (permutation,
+    compression, the sponge over 1-5 inputs, the root of 16 leaves) on
+    every lane against utils/poseidon_ref; ecrecover of one signature a
+    lane by 16 keys, every lane's key against its signer, lane 1 with s + 1
+    (another key) and lane 2 with r = 0 (refused). The inputs' oracles
+    come from the ingest pool. One warm call of each timed. Returns
+    {label: fn} for the profiler's session."""
+    res = host_result(job, host, "primitives")
+    card = CARD["name"]
+    calls = {}
+    for n in KECCAK_LENGTHS:
+        msgs = res["msgs"][n]
+        rows = torch.tensor(np.frombuffer(b"".join(msgs), np.uint8).reshape(
+            len(msgs), n).T.astype(np.int64), device=dev)
+        sha3 = _bytes_of(keccak.keccak256_bytes(rows, sha3=True))
+        kec = _bytes_of(keccak.keccak256_bytes(rows))
+        check(sha3 == [hashlib.sha3_256(m).digest() for m in msgs],
+              f"sha3_256 of {n} bytes != hashlib")
+        check(kec == res["keccak"][n], f"keccak256 of {n} bytes != oracle")
+        if n == max(KECCAK_LENGTHS):
+            calls["keccak256 (300 B)"] = lambda r=rows: \
+                keccak.keccak256_bytes(r)
+            calls["sha3_256 (300 B)"] = lambda r=rows: \
+                keccak.keccak256_bytes(r, sha3=True)
+    vec = _bytes_of(keccak.keccak256_bytes(torch.tensor(
+        [[97, 97], [98, 98], [99, 99]], device=dev)))
+    empty = _bytes_of(keccak.keccak256_bytes(
+        torch.zeros((0, 2), dtype=torch.int64, device=dev)))
+    check(vec[0].hex().startswith("4e03657aea45a94f") and
+          empty[0].hex().startswith("c5d2460186f7233c"),
+          "keccak256 known vectors")
+    batch = len(res["msgs"][0])
+    pks = [res["pks"][j % ECRECOVER_KEYS] for j in range(batch)]
+    pk_rows = torch.tensor(np.frombuffer(b"".join(pks), np.uint8).reshape(
+        batch, 64).T.astype(np.int64), device=dev)
+    check(_bytes_of(keccak.eth_address_from_pubkey(pk_rows)) ==
+          [res["eth"][j % ECRECOVER_KEYS] for j in range(batch)],
+          "eth_address_from_pubkey != oracle")
+    calls["eth_address_from_pubkey"] = lambda: \
+        keccak.eth_address_from_pubkey(pk_rows)
+    print(f"  keccak: Keccak-256 and SHA3-256 of {batch} messages at each of "
+          f"{len(KECCAK_LENGTHS)} lengths ({min(KECCAK_LENGTHS)}-"
+          f"{max(KECCAK_LENGTHS)} bytes) equal keccak_ref and hashlib on "
+          "every lane; the two known vectors; the Ethereum address of "
+          f"{batch} secp256k1 keys equals keccak_ref's")
+
+    cols, sponge_ins, leaves = res["p2_in"]
+    t = lambda xs: bn.to_tensor(fr.batch_to_limbs(xs), dev)  # noqa: E731
+    st = [t(c) for c in cols]
+    sp = [t(x) for x in sponge_ins]
+    lv = torch.stack([t(x) for x in leaves], 1)
+    want = res["p2"]
+    got = [fr.batch_from_limbs(x) for x in poseidon2.permutation(*st)]
+    check([list(v) for v in zip(*got)] == [w[0] for w in want],
+          "poseidon2 permutation != oracle")
+    check(fr.batch_from_limbs(poseidon2.compression(st[0], st[1])) ==
+          [w[1] for w in want], "poseidon2 compression != oracle")
+    for i, n in enumerate(P2_SPONGE):
+        check(fr.batch_from_limbs(poseidon2.sponge_hash(sp[:n])) ==
+              [w[2][i] for w in want], f"poseidon2 sponge of {n} != oracle")
+    check(fr.batch_from_limbs(poseidon2.merkle_root(lv)) ==
+          [w[3] for w in want], "poseidon2 merkle_root != oracle")
+    calls["poseidon2 permutation"] = lambda: poseidon2.permutation(*st)
+    calls["poseidon2 compression"] = lambda: poseidon2.compression(st[0],
+                                                                   st[1])
+    calls["poseidon2 sponge (5 inputs)"] = lambda: poseidon2.sponge_hash(sp)
+    calls[f"poseidon2 merkle_root ({P2_LEAVES} leaves)"] = lambda: \
+        poseidon2.merkle_root(lv)
+    print(f"  poseidon2: permutation, compression, the sponge over "
+          f"{min(P2_SPONGE)}-{max(P2_SPONGE)} inputs and the root of "
+          f"{P2_LEAVES} leaves equal poseidon_ref on all {batch} lanes")
+
+    sigs = list(res["sigs"])
+    r1, s1, v1, d1 = sigs[1]
+    sigs[1] = (r1, s1 + 1, v1, d1)
+    r2, s2, v2, d2 = sigs[2]
+    sigs[2] = (0, s2, v2, d2)
+    lim = lambda xs: bn.to_tensor(bn.ints_to_limbs_batch(xs, 16), dev)  # noqa
+    bits = torch.tensor(np.unpackbits(np.frombuffer(
+        b"".join(d for *_, d in sigs), np.uint8).reshape(batch, 32),
+        axis=1).T.astype(np.int64), device=dev)
+    args = (lim([x[0] for x in sigs]), lim([x[1] for x in sigs]),
+            torch.tensor([x[2] for x in sigs], dtype=torch.bool, device=dev),
+            bits)
+    qx, qy, ok = ecrecover.recover(*args)
+    ok = ok.cpu().tolist()
+    keys = list(zip(bn.limbs_to_ints_batch(qx), bn.limbs_to_ints_batch(qy)))
+    signer = [res["eckeys"][j % ECRECOVER_KEYS][1] for j in range(batch)]
+    check(ok[2] is False and all(ok[j] for j in range(batch) if j != 2),
+          "ecrecover: ok must be false on lane 2 (r = 0) only")
+    check(keys[1] != signer[1] and ok[1],
+          "ecrecover: lane 1 (s + 1) recovered its signer")
+    check(all(keys[j] == signer[j] for j in range(batch) if j not in (1, 2)),
+          "ecrecover: a lane's key is not its signer's")
+    calls["ecrecover.recover"] = lambda: ecrecover.recover(*args)
+    print(f"  ecrecover: {batch} signatures by {ECRECOVER_KEYS} keys, every "
+          "lane's key its signer's; lane 1 (s + 1) another key, lane 2 "
+          "(r = 0) refused")
+    for label, fn in calls.items():
+        ms = timed_call(fn)           # each ran once above, checked
+        print(f"  {label}: one warm call {ms:.3f} ms (host clock, "
+              f"synchronized), batch {batch}; card: {card}")
+    print(f"  primitives' host inputs and oracles: {res['primitives_s']:.1f}"
+          " s in the ingest pool (host)")
+    return calls
+
+
+def _multichip_rank(rank, world, port, pps, queue):
+    """One rank of the multichip phase (a spawned process a GPU): NCCL over
+    tcp://localhost:port, the flagship on pps a rank (shard_global_inputs
+    of the world's global batch, pps once a rank), the chained harness;
+    rank 0 puts its stats on queue."""
+    torch.cuda.set_device(rank)
+    distributed.init_distributed(f"localhost:{port}", world, rank, "nccl")
+    try:
+        p = params.CircuitParams.from_name(FLAGSHIP)
+        mesh = distributed.hybrid_mesh()
+        shards = distributed.shard_global_inputs(
+            builder.build_register_inputs_numpy(p, pps * world), mesh)
+        stats = distributed.throughput_harness(
+            lambda i: ri.forward(p, i), shards, mesh, iters=CHAINED_STEPS)
+        if rank == 0:
+            queue.put(stats)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_multichip(dev, pps):
+    """entry.dryrun_multichip over every card of the machine, then
+    distributed.throughput_harness in a NCCL world of one spawned process
+    a card, the flagship at batch 1024 a rank (the witness step's
+    passports, its two tampered lanes replaced by copies of lanes 2-3):
+    every witness valid."""
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    check(entry.dryrun_multichip(n) == 2 * n, "dryrun_multichip")
+    print(f"  entry.dryrun_multichip({n}): {time.perf_counter() - t0:.1f} s "
+          "(host clock, its inputs built inside)")
+    good = [pps[2], pps[3]] + pps[2:]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_multichip_rank, args=(
+        r, n, port, good, queue)) for r in range(n)]
+    for pr in procs:
+        pr.start()
+    stats = None
+    try:
+        while stats is None:
+            try:
+                stats = queue.get(timeout=5)
+            except Empty:
+                check(all(pr.exitcode in (None, 0) for pr in procs),
+                      "multichip: a rank exited "
+                      f"{[pr.exitcode for pr in procs]}")
+                check(time.perf_counter() - t0 < MULTICHIP_S,
+                      f"multichip: no result in {MULTICHIP_S} s")
+    finally:
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.kill()
+    check(all(pr.exitcode == 0 for pr in procs),
+          f"multichip ranks exited {[pr.exitcode for pr in procs]}")
+    print(f"  throughput_harness: {stats}")
+    check(stats["valid"] == stats["batch"] == len(good) * n,
+          f"multichip: {stats['valid']} valid of {stats['batch']}")
+    print(f"multichip: {stats['witnesses_per_sec']:.1f} witnesses/s "
+          f"({stats['sec_per_step'] * 1e3:.2f} ms/step, chained, "
+          f"{CHAINED_STEPS} steps) over {stats['processes']} NCCL rank(s), "
+          f"{stats['devices']} device(s), batch {stats['batch']}; "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start; card: "
+          f"{CARD['name']}")
+
+
 PROVE_BATCH = 2
 PROVE_SETUP_SEED = 5            # tools/prove_light_tpu.py's setup seed
 PROVE_SEED = 1
@@ -1520,8 +2147,6 @@ LIGHT_R1CS = (55438, 55805, 65536)
 # (query, points) vs host ints; 12,289 G1 points at B = 2 need two window
 # groups (42 + 22 windows), each halved once with an odd point carried
 MSM_SAMPLES = (("a", 512), ("a", 12289), ("b2", 64))
-# the sample whose warm MSM joins the profiler's session
-PROFILED_MSM = ("a", 12289)
 PROVE_STAGES = ("h", "msm_a", "msm_b1", "msm_k", "msm_h", "g1_chain",
                 "msm_b2")
 SETUP_PARTS = ("qap", "a_query", "b1_query", "k_query", "h_query",
@@ -1611,8 +2236,9 @@ def phase_prove(dev, rng, entries, pool):
     a_query (one of them in several window groups) and b2_query, two
     proves (cold, warm) timed by stage that must
     be equal, and verify (host pairing, in the pool): each lane true, a
-    public input plus one false. Returns {label: fn} of one warm G1 MSM
-    (a_query, both lanes) for the profiler's session."""
+    public input plus one false. (The warm 12,289-point G1 MSM left the
+    profiler's session: its Horner chain's ~175,000 kernels took about a
+    minute of the session, and the script its 1,200 s.)"""
     card = CARD["name"]
     started = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1660,10 +2286,6 @@ def phase_prove(dev, rng, entries, pool):
         x, y = msm.msm_affine(qx, qy, sc, curve)
         torch.cuda.synchronize()
         t_dev = time.perf_counter() - t0
-        if (name, n) == PROFILED_MSM:
-            profiled = (f"prove: one warm G1 MSM ({n} points of {name}_query,"
-                        f" B = {PROVE_BATCH}, {groups} window groups)",
-                        (qx, qy, sc))
         x, y = x.cpu().numpy(), y.cpu().numpy()
         got = [g2.limbs_to_point(x[..., i], y[..., i]) if g2f
                else _g1_ints(x, y, i) for i in range(PROVE_BATCH)]
@@ -1691,8 +2313,6 @@ def phase_prove(dev, rng, entries, pool):
           f"verify {t_verify:.2f} s (3 proofs, pool); peak device memory "
           f"{peak:.2f} GiB; phase {total:.1f} s; card: {card}")
     check(total < 300, f"phase prove took {total:.1f} s, not under 300")
-    label, (qx, qy, sc) = profiled
-    return {label: lambda: msm.msm_affine(qx, qy, sc)}
 
 
 def timed_setup(cs, n_public, seed, dev):
@@ -2053,7 +2673,12 @@ def main():
     p, pps, inp, out = phase_slice(dev, rng, entries)
     announce("phase algo_paths (ECDSA, RSA-PSS)")
     workers = max(1, min(8, (os.cpu_count() or 2) - 2))
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool, ctx.Pool(INGEST_WORKERS) as ingest_pool:
+        host = {}
+        host_job = threading.Thread(target=host_work, args=(
+            ingest_pool, BATCH, INGEST_SMALL, host), daemon=True)
+        host_job.start()
         flagship_job = pool.apply_async(flagship_circuit,
                                         (pps[FLAGSHIP_LANE],))
         runs = phase_algo_paths(dev, rng, entries, pool)
@@ -2063,8 +2688,15 @@ def main():
         id_runs.update(phase_query(dev, rng, entries, pool))
         announce("phase chain (register -> query on the flagship step)")
         phase_chain(dev, rng, entries, pool, pps, inp, out)
+        announce("phase ingest (the api path: SOD -> params -> witness, "
+                 "a 256-certificate master list)")
+        api_runs = phase_ingest(dev, entries, host_job, host)
+        announce("phase primitives (Keccak, Poseidon2, ecrecover)")
+        prim_calls = phase_primitives(dev, host_job, host)
+        announce("phase multichip (dryrun_multichip, the NCCL harness)")
+        phase_multichip(dev, pps)
         announce("phase prove (Groth16 on RegisterIdentityLight, B = 2)")
-        prove_runs = phase_prove(dev, rng, entries, pool)
+        phase_prove(dev, rng, entries, pool)
         announce("phase prove_query (Groth16 on QueryIdentity TD3, B = 2)")
         phase_prove_query(dev, rng, entries, pool)
         announce("phase prove_flagship (Groth16 on RegisterIdentity, the "
@@ -2076,7 +2708,13 @@ def main():
         (path, lambda q=q, x=x: ri.forward(q, x))
         for path, (q, x, _) in runs.items()] + [
         (label, fn) for label, (fn, _, batch) in id_runs.items()
-        if batch == BATCH] + list(prove_runs.items())
+        if batch == BATCH]
+    api_inputs = {label: (c, builder.build_register_inputs(c.params, w, dev))
+                  for label, (c, w) in api_runs.items()}
+    forwards += [(label, lambda c=c, x=x: c(x))
+                 for label, (c, x) in api_inputs.items()
+                 if label in PROFILED_API]
+    forwards += list(prim_calls.items())
     t0 = time.perf_counter()
     prof = device_profile(forwards)
     print(f"  the profiler's session and its events: "
@@ -2096,6 +2734,15 @@ def main():
             print(f"  {label}: one warm forward {id_runs[label][1]:.2f} ms "
                   f"(host clock, mean of 3), batch {id_runs[label][2]}")
     k4_at_depth(entries, prof)
+    live = live_levels(api_runs["ingest (api)"][1])
+    print(f"K4 on the api path's master-list proofs ({min(live)}-{max(live)} "
+          f"live levels a lane, {INGEST_CERTS} certificates): "
+          f"{prof['ingest (api)']['by_kernel']['smt_climb'][1]:.3f} us "
+          f"device; card: {card}")
+    ms = warm_ms(lambda: api_inputs["ingest (api)"][0](
+        api_inputs["ingest (api)"][1]))
+    print(f"ingest (api): one warm forward {ms:.2f} ms (host clock, mean of "
+          f"3, inputs on the card), batch {BATCH}; card: {card}")
     for name, ms in stage_ms(p, inp).items():
         print(f"  stage {name}: {ms:.2f} ms (mean of 3)")
     dt = chained_steps(p, inp)

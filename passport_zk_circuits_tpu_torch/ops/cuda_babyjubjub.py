@@ -49,12 +49,9 @@ def _launch(name, entry, n_out, bits, base_x, base_y):
     cuda_build.require_cuda_int64(name, bits, base_x, base_y)
     out = torch.empty((n_out, fr.NLIMBS, B), dtype=torch.int64,
                       device=base_x.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(base_x.device):
-        rc = getattr(lib, entry)(bits.data_ptr(), base_x.data_ptr(),
-                                 base_y.data_ptr(), out.data_ptr(), nbits, B,
-                                 cuda_build.stream_of(base_x))
-    cuda_build.check(rc, name)
+    cuda_build.launch(name, entry, base_x, bits.data_ptr(),
+                      base_x.data_ptr(), base_y.data_ptr(), out.data_ptr(),
+                      nbits, B)
     return tuple(out.unbind(0))
 
 

@@ -167,6 +167,19 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(name: str, entry: str, like, *args) -> None:
+    """Call the library's C entry point `entry` with args and, last, the
+    current stream of like's device, with like's device made the host
+    thread's current device around the call (a kernel launch goes to the
+    current device, which in a process with several cards need not be the
+    tensors'); raise on a non-zero code. Every kernel wrapper launches
+    through here."""
+    fn = getattr(library(), entry)
+    with torch.cuda.device(like.device):
+        rc = fn(*args, stream_of(like))
+    check(rc, name)
+
+
 def require_cuda_int64(name: str, *tensors) -> None:
     """The kernels take contiguous int64 tensors on one CUDA device."""
     dev = tensors[0].device

@@ -48,13 +48,9 @@ def _launch(name, fn, a, b, *extra):
     a, b = a.contiguous(), b.contiguous()
     cuda_build.require_cuda_int64(name, a, b)
     out = torch.empty_like(a)
-    lib = cuda_build.library()
-    with torch.cuda.device(a.device):
-        rc = getattr(lib, fn)(a.data_ptr(), b.data_ptr(),
-                              int(b.shape[1] == 1),
-                              out.data_ptr(), *extra, a.shape[1],
-                              cuda_build.stream_of(a))
-    cuda_build.check(rc, name)
+    cuda_build.launch(name, fn, a, a.data_ptr(), b.data_ptr(),
+                      int(b.shape[1] == 1), out.data_ptr(), *extra,
+                      a.shape[1])
     return out
 
 

@@ -75,12 +75,9 @@ def loop(body: str, a, c, n_iter: int):
     a, c = a.contiguous(), c.contiguous()
     cuda_build.require_cuda_int64("loop", a, c)
     out = torch.empty_like(a)
-    lib = cuda_build.library()
-    with torch.cuda.device(a.device):
-        rc = lib.pzk_loop(BODIES.index(body), a.data_ptr(), c.data_ptr(),
-                          out.data_ptr(), n_iter, a.shape[1],
-                          cuda_build.stream_of(a))
-    cuda_build.check(rc, f"loop {body}")
+    cuda_build.launch(f"loop {body}", "pzk_loop", a, BODIES.index(body),
+                      a.data_ptr(), c.data_ptr(), out.data_ptr(), n_iter,
+                      a.shape[1])
     loop.launches += 1
     return out
 

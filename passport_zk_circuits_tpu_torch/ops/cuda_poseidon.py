@@ -70,12 +70,9 @@ def poseidon_ex(inputs, n_outs: int = 1, initial_state=None):
     cuda_build.require_cuda_int64("poseidon_ex", flat)
     out = torch.empty((16 * n_outs, B), dtype=torch.int64, device=flat.device)
     pack = _pack(t, flat.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(flat.device):
-        rc = lib.pzk_poseidon(flat.data_ptr(), out.data_ptr(),
-                              pack.data_ptr(), t, pos.N_ROUNDS_P[t - 2],
-                              n_outs, B, cuda_build.stream_of(flat))
-    cuda_build.check(rc, "poseidon_ex")
+    cuda_build.launch("poseidon_ex", "pzk_poseidon", flat, flat.data_ptr(),
+                      out.data_ptr(), pack.data_ptr(), t,
+                      pos.N_ROUNDS_P[t - 2], n_outs, B)
     poseidon_ex.launches += 1
     return out.reshape(n_outs, 16, B).transpose(0, 1)
 
@@ -132,13 +129,10 @@ def smt_climb(siblings_flip, lrbits_flip, top_flip, inew_flip, key, value):
     cuda_build.require_cuda_int64("smt_climb", *args, leaf)
     out = torch.empty_like(leaf)
     pack = _pack(3, leaf.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(leaf.device):
-        rc = lib.pzk_smt_climb(*[a.data_ptr() for a in args],
-                               leaf.data_ptr(), out.data_ptr(),
-                               pack.data_ptr(), pos.N_ROUNDS_P[1], n_levels,
-                               B, cuda_build.stream_of(leaf))
-    cuda_build.check(rc, "smt_climb")
+    cuda_build.launch("smt_climb", "pzk_smt_climb", leaf,
+                      *[a.data_ptr() for a in args], leaf.data_ptr(),
+                      out.data_ptr(), pack.data_ptr(), pos.N_ROUNDS_P[1],
+                      n_levels, B)
     smt_climb.launches += 1
     return out
 

@@ -140,13 +140,10 @@ def probe(name: str, in0, in1=None):
     cuda_build.require_cuda_int64("probe", *ins)
     ((_, n, _, blocks),) = battery_plan({name: (in0, in1)})
     out = _out(name, in0)
-    lib = cuda_build.library()
-    with torch.cuda.device(in0.device):
-        rc = lib.pzk_probe(KERNEL_PROBES.index(name), ins[0].data_ptr(),
-                           ins[1].data_ptr() if len(ins) > 1 else None,
-                           out.data_ptr(), n, blocks,
-                           cuda_build.stream_of(in0))
-    cuda_build.check(rc, f"probe {name}")
+    cuda_build.launch(f"probe {name}", "pzk_probe", in0,
+                      KERNEL_PROBES.index(name), ins[0].data_ptr(),
+                      ins[1].data_ptr() if len(ins) > 1 else None,
+                      out.data_ptr(), n, blocks)
     probe.launches += 1
     return out
 
@@ -178,13 +175,9 @@ def battery(ins):
         (KERNEL_PROBES.index(name), ptr(ins[name][0]), ptr(ins[name][1]),
          outs[name].data_ptr(), n, first, blocks)
         for name, n, first, blocks in plan])
-    lib = cuda_build.library()
-    with torch.cuda.device(tensors[0].device):
-        rc = lib.pzk_probe_battery(
-            k, ints(*ids), ptrs(*in0s), ptrs(*in1s), ptrs(*out_ptrs),
-            ints(*ns), ints(*firsts), ints(*counts),
-            cuda_build.stream_of(tensors[0]))
-    cuda_build.check(rc, "probe battery")
+    cuda_build.launch("probe battery", "pzk_probe_battery", tensors[0], k,
+                      ints(*ids), ptrs(*in0s), ptrs(*in1s), ptrs(*out_ptrs),
+                      ints(*ns), ints(*firsts), ints(*counts))
     battery.launches += 1
     return outs
 

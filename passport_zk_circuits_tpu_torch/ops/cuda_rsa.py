@@ -48,12 +48,9 @@ def pow_mod(sig, n_limbs, mu_limbs, exp: int):
     # an even-modulus lane's words (csrc/bignum.cuh, bn::powmod_lane_words)
     scratch = torch.empty(B * (9 * (k // 2) + 4), dtype=torch.int32,
                           device=sig.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(sig.device):
-        rc = lib.pzk_rsa_pow(sig.data_ptr(), n_limbs.data_ptr(),
-                             mu_limbs.data_ptr(), out.data_ptr(), k, B, exp,
-                             scratch.data_ptr(), cuda_build.stream_of(sig))
-    cuda_build.check(rc, "pow_mod")
+    cuda_build.launch("pow_mod", "pzk_rsa_pow", sig, sig.data_ptr(),
+                      n_limbs.data_ptr(), mu_limbs.data_ptr(),
+                      out.data_ptr(), k, B, exp, scratch.data_ptr())
     pow_mod.launches += 1
     return out
 

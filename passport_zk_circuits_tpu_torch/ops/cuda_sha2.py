@@ -49,11 +49,8 @@ def sha2_32_chunks(msg, algo: int = 256):
     cuda_build.require_cuda_int64("sha2_32_chunks", msg)
     nb, B = msg.shape[0] // 16, msg.shape[1]
     out = torch.empty((8, B), dtype=torch.int64, device=msg.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(msg.device):
-        rc = lib.pzk_sha256(msg.data_ptr(), out.data_ptr(), nb, B,
-                            int(algo == 224), cuda_build.stream_of(msg))
-    cuda_build.check(rc, "sha2_32_chunks")
+    cuda_build.launch("sha2_32_chunks", "pzk_sha256", msg, msg.data_ptr(),
+                      out.data_ptr(), nb, B, int(algo == 224))
     if B:
         sha2_32_chunks.launches += 1
     return out if algo == 256 else out[:7]
@@ -94,15 +91,11 @@ def sha2_32_chunks_many(msgs, algos):
             for m in msgs]
     ptrs = ctypes.c_void_p * n
     ints = ctypes.c_int * n
-    lib = cuda_build.library()
-    with torch.cuda.device(msgs[0].device):
-        rc = lib.pzk_sha256_many(
-            ptrs(*[m.data_ptr() for m in msgs]),
-            ptrs(*[o.data_ptr() for o in outs]),
-            ints(*[m.shape[0] // 16 for m in msgs]),
-            ints(*[int(a == 224) for a in algos]), n, B,
-            cuda_build.stream_of(msgs[0]))
-    cuda_build.check(rc, "sha2_32_chunks_many")
+    cuda_build.launch("sha2_32_chunks_many", "pzk_sha256_many", msgs[0],
+                      ptrs(*[m.data_ptr() for m in msgs]),
+                      ptrs(*[o.data_ptr() for o in outs]),
+                      ints(*[m.shape[0] // 16 for m in msgs]),
+                      ints(*[int(a == 224) for a in algos]), n, B)
     if B:
         sha2_32_chunks_many.launches += 1
     return [o if a == 256 else o[:7] for o, a in zip(outs, algos)]

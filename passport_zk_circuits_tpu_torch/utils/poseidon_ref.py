@@ -1,10 +1,10 @@
 """Pure-Python (bigint) Poseidon oracle, circomlib-compatible.
 
 The port's own copy of ``passport_zk_circuits_tpu/utils/poseidon_ref.py``
-(its Poseidon2 oracle is left out until the port has ``ops/poseidon2``),
-reading the port's copy of ``constants/poseidon_bn254.npz``. It builds SMT
-roots during ingestion and is the bit-exactness oracle of the port's
-Poseidon.
+with its Poseidon2 (T = 3) oracle, reading the port's copies of
+``constants/poseidon_bn254.npz`` and ``constants/poseidon2_bn254_t3.npz``.
+It builds SMT roots during ingestion and is the bit-exactness oracle of
+the port's Poseidon and Poseidon2.
 
 Implements the optimized Poseidon round schedule over BN254 Fr: 8 full rounds
 (4 + 4) around nP partial rounds, with the pre-combined P/S matrices of the
@@ -90,3 +90,63 @@ def poseidon_ex(inputs, n_outs: int = 1, initial_state: int = 0):
 def poseidon(inputs) -> int:
     """circomlib-compatible Poseidon hash of 1..16 field elements."""
     return poseidon_ex(inputs, 1)[0]
+
+
+# ---------------------------------------------------------------------------
+# Poseidon2 (T=3) oracle: the host twin of ops/poseidon2.py, reading the
+# port's copy of constants/poseidon2_bn254_t3.npz
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _p2_consts():
+    data = np.load(pathlib.Path(__file__).parent / "constants" /
+                   "poseidon2_bn254_t3.npz")
+    internal = [_limbs_to_int(r) for r in data["internal"]]
+    external = [[_limbs_to_int(data["external"][i, j]) for j in range(3)]
+                for i in range(8)]
+    return internal, external
+
+
+def _p2_sigma(x):
+    x2 = x * x % P
+    return x2 * x2 % P * x % P
+
+
+def _p2_linear(s):
+    tot = sum(s) % P
+    return [(x + tot) % P for x in s]
+
+
+def poseidon2_permutation(state):
+    internal, external = _p2_consts()
+    s = _p2_linear([x % P for x in state])
+    for k in range(4):
+        s = _p2_linear([_p2_sigma((s[j] + external[k][j]) % P)
+                        for j in range(3)])
+    for k in range(56):
+        sg = _p2_sigma((s[0] + internal[k]) % P)
+        s = [(2 * sg + s[1] + s[2]) % P,
+             (sg + 2 * s[1] + s[2]) % P,
+             (sg + s[1] + 3 * s[2]) % P]
+    for k in range(4, 8):
+        s = _p2_linear([_p2_sigma((s[j] + external[k][j]) % P)
+                        for j in range(3)])
+    return s
+
+
+def poseidon2_compression(a, b):
+    return poseidon2_permutation([a, b, 0])[0]
+
+
+def poseidon2_sponge(inputs, capacity=2):
+    rate = 3 - capacity
+    n_blocks = ((len(inputs) + 1) + (rate - 1)) // rate
+    padded = list(inputs) + [1]
+    padded += [0] * (n_blocks * rate - len(padded))
+    civ = (1 << 64) + 256 * 3 + rate
+    state = [0, 0, civ]
+    for m in range(n_blocks):
+        for i in range(rate):
+            state[i] = (state[i] + padded[m * rate + i]) % P
+        state = poseidon2_permutation(state)
+    return state[0]

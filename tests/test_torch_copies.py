@@ -1,19 +1,20 @@
 """The port's own copies of the JAX package's pure-Python modules
-(models/params, ops/curves, utils/poseidon_ref, babyjubjub_ref, rsa_keygen,
-ecdsa_ref, utils/constants/countries) and of
-utils/constants/poseidon_bn254.npz and the eight fixed_base_<curve>.npz
-tables (bn254_g1 and bn254_g2 among them) equal the originals: the
-registries field by field, the constants file by file and array by array,
-the oracles on seeded inputs. The copied host modules of the proving path
-(circuit/builder, poseidon, sha256, babyjubjub, register_light and the
-other lowerings: bignum, sha, sha1, sha512, smt, dates, rsapss,
-weierstrass, ecdsa, register_identity, query_identity; groth16/pairing
-and export) hold the original's code, imports and docstrings aside (their
-syntax trees without those), with two exemptions: circuit/sha512 reads the
-SHA-512 and SHA-384 IVs under the port's names (``H512``, ``H384`` for
-``_H512``, ``_H384``), and circuit/weierstrass's ``_gen_tables`` computes
-its tables in memory, without the original's cache file (and its
-``_CACHE_DIR``)."""
+(models/params, ops/curves, utils/poseidon_ref with its Poseidon2 oracle,
+babyjubjub_ref, rsa_keygen, ecdsa_ref, utils/constants/countries) and of
+utils/constants/poseidon_bn254.npz, poseidon2_bn254_t3.npz and the nine
+fixed_base_<curve>.npz tables (bn254_g1, bn254_g2 and secp256k1 among
+them) equal the originals: the registries field by field, the constants
+file by file and array by array, the oracles on seeded inputs. The copied
+host modules of the proving path (circuit/builder, poseidon, sha256,
+babyjubjub, register_light and the other lowerings: bignum, sha, sha1,
+sha512, smt, dates, rsapss, weierstrass, ecdsa, register_identity,
+query_identity; groth16/pairing and export) and of ingestion
+(ingest/asn1, x509, passport, masterlist) hold the original's code,
+imports and docstrings aside (their syntax trees without those), with two
+exemptions: circuit/sha512 reads the SHA-512 and SHA-384 IVs under the
+port's names (``H512``, ``H384`` for ``_H512``, ``_H384``), and
+circuit/weierstrass's ``_gen_tables`` computes its tables in memory,
+without the original's cache file (and its ``_CACHE_DIR``)."""
 
 import ast
 import dataclasses
@@ -47,7 +48,7 @@ JAX_CONST = ROOT / "passport_zk_circuits_tpu" / "utils" / "constants"
 JAX_NPZ = JAX_CONST / "poseidon_bn254.npz"
 FIXED_BASE = ("p256", "brainpoolP256r1", "brainpoolP320r1",
               "brainpoolP384r1", "secp192r1", "secp224r1", "bn254_g1",
-              "bn254_g2")
+              "bn254_g2", "secp256k1")
 HOST_COPIES = ("circuit/__init__.py", "circuit/builder.py",
                "circuit/poseidon.py", "circuit/sha256.py",
                "circuit/babyjubjub.py", "circuit/register_light.py",
@@ -56,7 +57,9 @@ HOST_COPIES = ("circuit/__init__.py", "circuit/builder.py",
                "circuit/rsapss.py", "circuit/weierstrass.py",
                "circuit/ecdsa.py", "circuit/register_identity.py",
                "circuit/query_identity.py",
-               "groth16/pairing.py", "groth16/export.py")
+               "groth16/pairing.py", "groth16/export.py",
+               "ingest/asn1.py", "ingest/x509.py", "ingest/passport.py",
+               "ingest/masterlist.py")
 
 
 def test_sig_algo_registry_field_by_field():
@@ -92,6 +95,31 @@ def test_poseidon_oracle_equal():
         init = rng.randrange(pref.P)
         assert pref.poseidon(xs) == jpref.poseidon(xs)
         assert pref.poseidon_ex(xs, 2, init) == jpref.poseidon_ex(xs, 2, init)
+
+
+def test_poseidon2_npz_equal_array_by_array():
+    from passport_zk_circuits_tpu_torch.ops import poseidon2
+    theirs = JAX_CONST / "poseidon2_bn254_t3.npz"
+    assert poseidon2.NPZ.read_bytes() == theirs.read_bytes()
+    with np.load(poseidon2.NPZ) as mine, np.load(theirs) as other:
+        assert sorted(mine.files) == sorted(other.files) == \
+            ["external", "internal"]
+        for k in other.files:
+            assert np.array_equal(mine[k], other[k]), k
+
+
+def test_poseidon2_oracle_equal():
+    rng = random.Random(36)
+    for _ in range(3):
+        s = [rng.randrange(pref.P) for _ in range(3)]
+        assert pref.poseidon2_permutation(s) == \
+            jpref.poseidon2_permutation(s)
+        assert pref.poseidon2_compression(s[0], s[1]) == \
+            jpref.poseidon2_compression(s[0], s[1])
+    for n in (1, 2, 5):
+        xs = [rng.randrange(pref.P) for _ in range(n)]
+        assert pref.poseidon2_sponge(xs) == jpref.poseidon2_sponge(xs)
+        assert pref.poseidon2_sponge(xs, 1) == jpref.poseidon2_sponge(xs, 1)
 
 
 def test_babyjubjub_oracle_equal():

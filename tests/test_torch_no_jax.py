@@ -84,6 +84,28 @@ assert (bn.limbs_to_int(px[:, 0]), bn.limbs_to_int(py[:, 0])) == protocol._g1_mu
 qx, qy = g2.to_affine(g2.fixed_base_mul(a[:, :1]))
 assert g2.limbs_to_point(qx[..., 0], qy[..., 0]) == pairing.ec_mul(pairing.G2, 3)
 assert export.public_to_json([1, 2]).count("\n") >= 2
+import random
+from passport_zk_circuits_tpu_torch import api, entry
+from passport_zk_circuits_tpu_torch.ingest import asn1, masterlist, passport, x509
+from passport_zk_circuits_tpu_torch.ops import ecrecover, keccak, poseidon2
+from passport_zk_circuits_tpu_torch.parallel import distributed, mesh as pmesh
+assert bytes(torch.stack(keccak.keccak256_bytes(torch.tensor([[97], [98], [99]])))[:, 0].tolist()).hex().startswith("4e03657a")
+z = bn.to_tensor(fr.batch_to_limbs([1]), "cpu")
+assert fr.batch_from_limbs(poseidon2.permutation(z, z, z)[0]) == [pref.poseidon2_permutation([1, 1, 1])[0]]
+assert wst.fixed_base_table("secp256k1", torch.device("cpu"))[0].shape[1:] == (16, 256)
+assert asn1.parse(asn1.seq(asn1.integer(5))).child(0).as_int() == 5
+sod, _ = passport.build_sod(bytes(93), None, 20, 256, random.Random(3), with_certificate=False)
+params, wit = api.ingest(bytes(93), None, sod, aa_algo=0)
+assert params.signature_type == 20 and wit["slave_branches"] == [0] * 80
+assert masterlist.SparseMerkleTree(8).root() == 0
+assert callable(ecrecover.recover) and callable(x509.parse_spki)
+assert callable(entry.dryrun_multichip) and distributed.process_count() == 1
+assert len(pmesh.shard_inputs({"x": a}, pmesh.make_mesh(2, device_type="cpu"))) == 2
+try:
+    api.compile(params)
+    raise AssertionError("api.compile ran without a card")
+except RuntimeError:
+    pass
 bad = [m for m, v in sys.modules.items() if v is not None and
        (m.split(".")[0] in ("jax", "passport_zk_circuits_tpu"))]
 assert not bad, bad
