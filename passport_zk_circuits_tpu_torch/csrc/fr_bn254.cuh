@@ -10,6 +10,11 @@
 // kernel's boundary (to_mont / from_mont), where values are canonical
 // 16-bit limbs as in the rest of the port.
 //
+// The column loop is written once, over a modulus M (its words, -M^-1 mod
+// 2^32, 2^512 mod M, 2^256 mod M): FrModulus here, BN254's base field q in
+// fq_bn254.cuh (the Groth16 prover's group arithmetic, K10 and K11). An
+// element of the field mod M is an Elem<M>; fr::Fe is Elem<FrModulus>.
+//
 // Everything is __host__ __device__ and free of CUDA intrinsics, so g++
 // compiles the same arithmetic for the host tests.
 #pragma once
@@ -36,27 +41,55 @@ constexpr int NW = 8;  // 32-bit words per element
                    0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u
 constexpr uint32_t PINV = 0xefffffffu;  // -P^-1 mod 2^32
 
-struct Fe {
-  uint32_t w[NW];
+PZK_HD void copy_words(uint32_t (&v)[NW], const uint32_t (&c)[NW]) {
+  for (int i = 0; i < NW; ++i) v[i] = c[i];
+}
+
+// A modulus of the column loop: its words (p), -p^-1 mod 2^32 (pinv),
+// 2^512 mod p (r2) and 2^256 mod p (one). Words come as local arrays of
+// literals, which device code takes as constants once unrolled.
+struct FrModulus {
+  static constexpr uint32_t pinv = PINV;
+  PZK_HD static void p(uint32_t (&v)[NW]) {
+    const uint32_t c[NW] = {PZK_FR_P};
+    copy_words(v, c);
+  }
+  PZK_HD static void r2(uint32_t (&v)[NW]) {
+    const uint32_t c[NW] = {PZK_FR_R2};
+    copy_words(v, c);
+  }
+  PZK_HD static void one(uint32_t (&v)[NW]) {
+    const uint32_t c[NW] = {PZK_FR_ONE};
+    copy_words(v, c);
+  }
 };
 
-PZK_HD Fe zero() {
-  Fe r;
+template <class M>
+struct Elem {
+  uint32_t w[NW];
+};
+using Fe = Elem<FrModulus>;
+
+template <class M = FrModulus>
+PZK_HD Elem<M> zero() {
+  Elem<M> r;
   for (int i = 0; i < NW; ++i) r.w[i] = 0;
   return r;
 }
 
-PZK_HD Fe one_mont() {
-  const uint32_t o[NW] = {PZK_FR_ONE};
-  Fe r;
-  for (int i = 0; i < NW; ++i) r.w[i] = o[i];
+template <class M = FrModulus>
+PZK_HD Elem<M> one_mont() {
+  Elem<M> r;
+  M::one(r.w);
   return r;
 }
 
 // r = x - P if x >= P (x given as 8 words plus a ninth, top word)
-PZK_HD Fe reduce_once(const uint32_t x[NW], uint32_t top) {
-  const uint32_t p[NW] = {PZK_FR_P};
-  Fe d;
+template <class M>
+PZK_HD Elem<M> reduce_once(const uint32_t x[NW], uint32_t top) {
+  uint32_t p[NW];
+  M::p(p);
+  Elem<M> d;
   uint64_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
@@ -72,7 +105,8 @@ PZK_HD Fe reduce_once(const uint32_t x[NW], uint32_t top) {
 }
 
 // a + b mod P, a, b < P
-PZK_HD Fe add(const Fe& a, const Fe& b) {
+template <class M>
+PZK_HD Elem<M> add(const Elem<M>& a, const Elem<M>& b) {
   uint32_t s[NW];
   uint64_t c = 0;
 #pragma unroll
@@ -81,13 +115,15 @@ PZK_HD Fe add(const Fe& a, const Fe& b) {
     s[i] = (uint32_t)v;
     c = v >> 32;
   }
-  return reduce_once(s, (uint32_t)c);
+  return reduce_once<M>(s, (uint32_t)c);
 }
 
 // a - b mod P, a, b < P
-PZK_HD Fe sub(const Fe& a, const Fe& b) {
-  const uint32_t p[NW] = {PZK_FR_P};
-  Fe d;
+template <class M>
+PZK_HD Elem<M> sub(const Elem<M>& a, const Elem<M>& b) {
+  uint32_t p[NW];
+  M::p(p);
+  Elem<M> d;
   uint64_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
@@ -109,8 +145,10 @@ PZK_HD Fe sub(const Fe& a, const Fe& b) {
 
 // Montgomery product a * b / 2^256 mod P (CIOS). a < 2^256, b < P gives
 // t < 2P before the final subtract, so the result is canonical.
-PZK_HD Fe mul(const Fe& a, const Fe& b) {
-  const uint32_t p[NW] = {PZK_FR_P};
+template <class M>
+PZK_HD Elem<M> mul(const Elem<M>& a, const Elem<M>& b) {
+  uint32_t p[NW];
+  M::p(p);
   uint32_t t[NW + 2];
 #pragma unroll
   for (int i = 0; i < NW + 2; ++i) t[i] = 0;
@@ -126,7 +164,7 @@ PZK_HD Fe mul(const Fe& a, const Fe& b) {
     uint64_t v = (uint64_t)t[NW] + c;
     t[NW] = (uint32_t)v;
     t[NW + 1] = (uint32_t)(v >> 32);
-    uint32_t m = t[0] * PINV;
+    uint32_t m = t[0] * M::pinv;
     v = (uint64_t)t[0] + (uint64_t)m * p[0];
     c = v >> 32;
 #pragma unroll
@@ -139,36 +177,43 @@ PZK_HD Fe mul(const Fe& a, const Fe& b) {
     t[NW - 1] = (uint32_t)v;
     t[NW] = t[NW + 1] + (uint32_t)(v >> 32);
   }
-  return reduce_once(t, t[NW]);
+  return reduce_once<M>(t, t[NW]);
 }
 
-PZK_HD Fe sqr(const Fe& a) { return mul(a, a); }
+template <class M>
+PZK_HD Elem<M> sqr(const Elem<M>& a) { return mul(a, a); }
 
-PZK_HD Fe to_mont(const Fe& a) {
-  const uint32_t r2[NW] = {PZK_FR_R2};
-  Fe b;
-  for (int i = 0; i < NW; ++i) b.w[i] = r2[i];
+template <class M>
+PZK_HD Elem<M> to_mont(const Elem<M>& a) {
+  Elem<M> b;
+  M::r2(b.w);
   return mul(a, b);
 }
 
-PZK_HD Fe from_mont(const Fe& a) {
-  Fe one = zero();
+template <class M>
+PZK_HD Elem<M> from_mont(const Elem<M>& a) {
+  Elem<M> one = zero<M>();
   one.w[0] = 1;
   return mul(a, one);
 }
 
-PZK_HD Fe select(bool c, const Fe& a, const Fe& b) { return c ? a : b; }
+template <class M>
+PZK_HD Elem<M> select(bool c, const Elem<M>& a, const Elem<M>& b) {
+  return c ? a : b;
+}
 
 // 16 little-endian 16-bit limbs (int64 each) at x[i * stride] -> words
-PZK_HD Fe load_limbs(const int64_t* x, long stride) {
-  Fe r;
+template <class M = FrModulus>
+PZK_HD Elem<M> load_limbs(const int64_t* x, long stride) {
+  Elem<M> r;
   for (int i = 0; i < NW; ++i)
     r.w[i] = (uint32_t)(x[(2 * i) * stride] & 0xFFFF) |
              ((uint32_t)(x[(2 * i + 1) * stride] & 0xFFFF) << 16);
   return r;
 }
 
-PZK_HD void store_limbs(const Fe& a, int64_t* x, long stride) {
+template <class M>
+PZK_HD void store_limbs(const Elem<M>& a, int64_t* x, long stride) {
   for (int i = 0; i < NW; ++i) {
     x[(2 * i) * stride] = a.w[i] & 0xFFFF;
     x[(2 * i + 1) * stride] = a.w[i] >> 16;
@@ -176,8 +221,9 @@ PZK_HD void store_limbs(const Fe& a, int64_t* x, long stride) {
 }
 
 // Montgomery-form constant stored as 8 words at c
-PZK_HD Fe load_words(const uint32_t* c) {
-  Fe r;
+template <class M = FrModulus>
+PZK_HD Elem<M> load_words(const uint32_t* c) {
+  Elem<M> r;
   for (int i = 0; i < NW; ++i) r.w[i] = c[i];
   return r;
 }
@@ -217,10 +263,12 @@ struct Lane {
 
 // a^(P-2) in Montgomery form, square-and-multiply from the top bit of the
 // exponent: a^-1 for a != 0, and 0 for a = 0 (ops/field.inv's convention).
-// 256 squarings and 127 products (popcount of P - 2).
-template <class A>
+// 256 squarings and 127 products (popcount of P - 2) for Fr; M is the
+// modulus whose P - 2 is the exponent (its lowest word at least 2).
+template <class A, class M = FrModulus>
 PZK_HD typename A::Fe inv(const A& f, const typename A::Fe& a) {
-  const uint32_t p[NW] = {PZK_FR_P};
+  uint32_t p[NW];
+  M::p(p);
   typename A::Fe r = f.one();
 #pragma unroll
   for (int w = NW - 1; w >= 0; --w) {

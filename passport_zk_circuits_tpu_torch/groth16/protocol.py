@@ -6,13 +6,15 @@ R1CS (``r1cs.system.ConstraintSystem``):
 
   * ``setup``: the QAP on the host (Python ints: Lagrange bases at tau from
     a seeded DRBG, TEST/DEV ONLY); the G1 queries and the [v_j(tau)]G2
-    query by the fixed-base mults of ops/weierstrass and ops/g2 on the
-    device (small lists on the host); the proving key's queries are
-    uploaded to the device once, as its declared ``queries``;
+    query by fixed-base mults on the device (small lists on the host): on
+    a card K11 (ops/cuda_fixed_base), on the CPU its plain version
+    (ops/weierstrass and ops/g2); the proving key's queries are uploaded to
+    the device once, as its declared ``queries`` (on a card also in
+    Montgomery words, ``mont``, for K10);
   * ``prove``: Az/Bz/Cz by the batched sparse matvec, h(X) by coset NTTs
-    (ops/ntt), the A/B1/K/H MSMs over bn254_g1 and pi_B's MSM over G2
-    (ops/msm) on the device, one proof a batch lane; the host adds the
-    blinding terms;
+    (ops/ntt), the A/B1/K/H MSMs over bn254_g1 and pi_B's MSM over G2 on
+    the device, one proof a batch lane: on a card K10 (ops/cuda_msm), on
+    the CPU the plain ops/msm; the host adds the blinding terms;
   * ``verify``: the pairing product on the host (groth16/pairing.py).
 
 The two DRBGs are the JAX package's, and every device result is a unique
@@ -38,6 +40,8 @@ import numpy as np
 import torch
 
 from ..ops import bignum as bn
+from ..ops import cuda_fixed_base
+from ..ops import cuda_msm
 from ..ops import field as fr
 from ..ops import g2 as _g2
 from ..ops import msm as _msm
@@ -51,6 +55,10 @@ QUERIES = ("a", "b1", "k", "h", "b2")
 
 
 # -- key / proof containers ---------------------------------------------------
+
+def _curve(name: str) -> str:
+    return "bn254_g2" if name == "b2" else "bn254_g1"
+
 
 @dataclasses.dataclass
 class ProvingKey:
@@ -71,24 +79,33 @@ class ProvingKey:
     k_inf: np.ndarray
     b2_inf: np.ndarray
     # the device the queries live on, and per query name the (x, y) int64
-    # limb tensors and the infinity mask there (h has none): filled by to()
+    # limb tensors and the infinity mask there (h has none): filled by to().
+    # On a card the points live there only in Montgomery words for K10
+    # (mont: cuda_msm.points, converted once a key), so the limbs in
+    # queries are None; the host keeps them in the arrays above
     device: torch.device = None
     queries: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
+    mont: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
 
     def to(self, device) -> "ProvingKey":
         """A copy whose queries are uploaded to device (the arrays above
-        are shared, not copied)."""
+        are shared, not copied): on a card in Montgomery words only."""
         device = torch.device(device)
-        queries = {}
+        queries, mont = {}, {}
         for name in QUERIES:
             q = getattr(self, f"{name}_query")
             inf = getattr(self, f"{name}_inf", None)
-            queries[name] = (bn.to_tensor(q[0], device),
-                             bn.to_tensor(q[1], device),
-                             None if inf is None
+            x, y = bn.to_tensor(q[0], device), bn.to_tensor(q[1], device)
+            if device.type == "cuda":
+                if q.shape[-1]:
+                    mont[name] = cuda_msm.points(x, y, _curve(name))
+                x = y = None
+            queries[name] = (x, y, None if inf is None
                              else torch.as_tensor(inf, device=device))
-        return dataclasses.replace(self, device=device, queries=queries)
+        return dataclasses.replace(self, device=device, queries=queries,
+                                   mont=mont)
 
 
 @dataclasses.dataclass
@@ -268,8 +285,8 @@ def _lagrange_at_tau(m: int, tau: int) -> List[int]:
             for wi, di in zip(wis, denom_inv)]
 
 
-# fixed-base mults a device call: (k, 3, chunk) points stay near 2 GB of
-# temporaries for G1 and 6 GB for G2
+# fixed-base mults a call of the plain version: (k, 3, chunk) points stay
+# near 2 GB of temporaries for G1 and 6 GB for G2 (K11 takes a list whole)
 _FB_CHUNK = 65536
 # at or below these list lengths the host's int mults make a G1 or a G2
 # query (the JAX package's cutoffs on its accelerator); longer lists take
@@ -277,11 +294,18 @@ _FB_CHUNK = 65536
 _FB_HOST_CUTOFF_G1, _FB_HOST_CUTOFF_G2 = 512, 256
 
 
-def _g1_mul_many(scalars: List[int], device) -> Tuple[np.ndarray, np.ndarray]:
+def _fb_chunk(n: int, device: torch.device) -> int:
+    return n if device.type == "cuda" else _FB_CHUNK
+
+
+def _g1_mul_many(scalars: List[int], device, inputs: dict = None,
+                 name: str = None) -> Tuple[np.ndarray, np.ndarray]:
     """[s]G1 for a list of Fr scalars -> ((2, k, N) affine limb array,
     infinity mask). Short lists run on the host; long ones take the
-    device's stride-8 fixed-base mult (ops/weierstrass.fixed_base_mul) in
-    chunks."""
+    device's stride-8 fixed-base mult (``cuda_fixed_base.mul_g1``: K11 on a
+    card, its plain version ops/weierstrass.fixed_base_mul on the CPU, in
+    chunks), and inputs[name], when inputs is a dict, gets their (16, N)
+    limb tensor."""
     n = len(scalars)
     scalars = [s % fr.P for s in scalars]
     device = torch.device(device)
@@ -291,21 +315,27 @@ def _g1_mul_many(scalars: List[int], device) -> Tuple[np.ndarray, np.ndarray]:
     inf = np.array([s == 0 for s in scalars], dtype=bool)
     xs = np.zeros((c.k, n), np.uint32)
     ys = np.zeros((c.k, n), np.uint32)
-    for lo in range(0, n, _FB_CHUNK):
-        hi = min(n, lo + _FB_CHUNK)
-        sl = bn.to_tensor(bn.ints_to_limbs_batch(scalars[lo:hi], c.kn),
-                          device)
-        x, y = wst.to_affine(c, wst.fixed_base_mul(c, sl))
+    sl = bn.to_tensor(bn.ints_to_limbs_batch(scalars, c.kn), device)
+    if inputs is not None:
+        inputs[name] = sl
+    step = _fb_chunk(n, device)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        x, y = cuda_fixed_base.mul_g1(sl[:, lo:hi])
         xs[:, lo:hi] = x.cpu().numpy()
         ys[:, lo:hi] = y.cpu().numpy()
     return np.stack([xs, ys]), inf
 
 
-def _g2_mul_many(scalars: List[int], device) -> Tuple[np.ndarray, np.ndarray]:
+def _g2_mul_many(scalars: List[int], device, inputs: dict = None,
+                 name: str = None) -> Tuple[np.ndarray, np.ndarray]:
     """[s]G2 for a list of Fr scalars -> ((2, k, 2, N) FQ2 affine limb
     array, infinity mask): the b2_query builder. Short lists run on the
     host (pairing affine ops); long ones take the device's stride-8
-    fixed-base mult over the twist (ops/g2.fixed_base_mul)."""
+    fixed-base mult over the twist (``cuda_fixed_base.mul_g2``: K11 on a
+    card, its plain version ops/g2.fixed_base_mul on the CPU, in chunks),
+    and inputs[name], when inputs is a dict, gets their (16, N) limb
+    tensor."""
     n = len(scalars)
     scalars = [s % fr.P for s in scalars]
     device = torch.device(device)
@@ -313,11 +343,13 @@ def _g2_mul_many(scalars: List[int], device) -> Tuple[np.ndarray, np.ndarray]:
         return _g2.points_to_limbs([pr.ec_mul(pr.G2, s) for s in scalars])
     inf = np.array([s == 0 for s in scalars], dtype=bool)
     out = np.zeros((2, _g2.K, 2, n), np.uint32)
-    for lo in range(0, n, _FB_CHUNK):
-        hi = min(n, lo + _FB_CHUNK)
-        sl = bn.to_tensor(bn.ints_to_limbs_batch(scalars[lo:hi], _g2.KN),
-                          device)
-        x, y = _g2.to_affine(_g2.fixed_base_mul(sl))
+    sl = bn.to_tensor(bn.ints_to_limbs_batch(scalars, _g2.KN), device)
+    if inputs is not None:
+        inputs[name] = sl
+    step = _fb_chunk(n, device)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        x, y = cuda_fixed_base.mul_g2(sl[:, lo:hi])
         out[0, :, :, lo:hi] = x.cpu().numpy()
         out[1, :, :, lo:hi] = y.cpu().numpy()
     return out, inf
@@ -336,11 +368,14 @@ def _timed(times, name, device, fn):
 
 
 def setup(cs: ConstraintSystem, n_public: int, seed: int = 0,
-          device="cuda", times: dict = None):
+          device="cuda", times: dict = None, inputs: dict = None):
     """Build (ProvingKey, VerifyingKey), the key's queries on device.
     Toxic waste from `seed`: dev only. times, when a dict, gets each part's
     seconds: qap (host Lagrange bases and QAP), a_query, b1_query,
-    k_query, h_query, b2_query, and rest (ic and the key's points)."""
+    k_query, h_query, b2_query, and rest (ic and the key's points).
+    inputs, when a dict, gets the scalars of each query made on the
+    device, as the (16, N) limb tensor its fixed-base mult was given
+    (a, b1, k, h, b2)."""
     device = torch.device(device)
     rng = random.Random(("groth16-setup", seed).__repr__())
     tau, alpha, beta, gamma, delta = (rng.randrange(1, fr.P) for _ in range(5))
@@ -371,15 +406,15 @@ def setup(cs: ConstraintSystem, n_public: int, seed: int = 0,
         tau_pows[i] = tau_pows[i - 1] * tau % fr.P
     zd = zh * delta_inv % fr.P
     a_q, a_inf = _timed(times, "a_query", device,
-                        lambda: _g1_mul_many(u, device))
+                        lambda: _g1_mul_many(u, device, inputs, "a"))
     b1_q, b1_inf = _timed(times, "b1_query", device,
-                          lambda: _g1_mul_many(v, device))
+                          lambda: _g1_mul_many(v, device, inputs, "b1"))
     k_q, k_inf = _timed(times, "k_query", device,
-                        lambda: _g1_mul_many(k_scalars, device))
+                        lambda: _g1_mul_many(k_scalars, device, inputs, "k"))
     h_q, h_inf = _timed(times, "h_query", device, lambda: _g1_mul_many(
-        [t * zd % fr.P for t in tau_pows], device))
+        [t * zd % fr.P for t in tau_pows], device, inputs, "h"))
     b2_q, b2_inf = _timed(times, "b2_query", device,
-                          lambda: _g2_mul_many(v, device))
+                          lambda: _g2_mul_many(v, device, inputs, "b2"))
     if h_inf.any():
         raise ArithmeticError("an h query point is infinity")
 
@@ -492,12 +527,15 @@ def _msm_lanes_host(query: np.ndarray, scalars: np.ndarray, nb: int,
     return out
 
 
-def _window_sums(pk: ProvingKey, name: str, scalars, host_cutoff: int):
+def _window_sums(pk: ProvingKey, name: str, scalars, host_cutoff: int,
+                 inputs: dict = None):
     """The MSM of query `name` against per-lane scalars (16, B, N) on the
-    key's device (B proof lanes share one table of the query's points), up
+    key's device (B proof lanes share the query's points): on a card the
+    whole MSM by K10 (``cuda_msm.msm_affine`` on the key's Montgomery
+    points), read back as a list of host points, one a lane; on the CPU up
     to its window sums (``msm.window_sums``: a tensor); a query of at most
-    host_cutoff points takes the host's int MSM instead (a list of host
-    points, one a lane)."""
+    host_cutoff points takes the host's int MSM instead (a list). inputs,
+    when a dict, gets the device's scalars (16, B, N), infinity's masked."""
     g2f = name == "b2"
     query = getattr(pk, f"{name}_query")
     n = query.shape[-1]
@@ -510,46 +548,61 @@ def _window_sums(pk: ProvingKey, name: str, scalars, host_cutoff: int):
     if n <= host_cutoff:
         # tiny MSMs (demo and test circuits): a few hundred host mults
         return _msm_lanes_host(query, scalars.cpu().numpy(), nb, g2f)
-    return _msm.window_sums(qx, qy, scalars,
-                            "bn254_g2" if g2f else "bn254_g1")
+    if inputs is not None:
+        inputs[name] = scalars
+    if pk.device.type == "cuda":
+        return _host_points(*cuda_msm.msm_affine(
+            None, None, scalars, _curve(name), mont=pk.mont[name]),
+            _curve(name))
+    return _msm.window_sums(qx, qy, scalars, _curve(name))
+
+
+def _host_points(x, y, curve: str) -> list:
+    """Affine limbs (16[, 2], B) -> B host points: G1 int pairs, G2
+    pairing FQ2 pairs; None = infinity."""
+    x, y = x.cpu().numpy(), y.cpu().numpy()
+    if curve == "bn254_g2":
+        return [_g2.limbs_to_point(x[..., j], y[..., j])
+                for j in range(x.shape[-1])]
+    return [None if not (x[:, j].any() or y[:, j].any()) else
+            (bn.limbs_to_int(x[:, j]), bn.limbs_to_int(y[:, j]))
+            for j in range(x.shape[-1])]
 
 
 def _finish(parts: dict, curve: str) -> dict:
     """Host affine points of each lane of each MSM in parts (name -> window
     sums or host points): every window-sum tensor goes through ONE Horner
-    chain (``msm.chain_affine``, their lanes side by side). G1 points are
-    int pairs, G2 points pairing FQ2 pairs; None = infinity."""
+    chain (``msm.chain_affine``, their lanes side by side)."""
+    out = {k: v for k, v in parts.items() if isinstance(v, list)}
     names = [k for k, v in parts.items() if torch.is_tensor(v)]
-    out = {k: v for k, v in parts.items() if not torch.is_tensor(v)}
     if not names:
         return out
-    widths = [parts[k].shape[-1] for k in names]
-    xy = _msm.chain_affine(torch.cat([parts[k] for k in names], -1), curve)
-    x, y = (t.cpu().numpy() for t in xy)
+    x, y = _msm.chain_affine(torch.cat([parts[k] for k in names], -1), curve)
     lane = 0
-    for k, nb in zip(names, widths):
-        if curve == "bn254_g2":
-            out[k] = [_g2.limbs_to_point(x[..., j], y[..., j])
-                      for j in range(lane, lane + nb)]
-        else:
-            out[k] = [None if not (x[:, j].any() or y[:, j].any()) else
-                      (bn.limbs_to_int(x[:, j]), bn.limbs_to_int(y[:, j]))
-                      for j in range(lane, lane + nb)]
+    for k in names:
+        nb = parts[k].shape[-1]
+        out[k] = _host_points(x[..., lane:lane + nb], y[..., lane:lane + nb],
+                              curve)
         lane += nb
     return out
 
 
 def prove(pk: ProvingKey, cs: ConstraintSystem, witness, seed: int = 1,
-          host_cutoff: int = _MSM_HOST_CUTOFF, times: dict = None):
+          host_cutoff: int = _MSM_HOST_CUTOFF, times: dict = None,
+          inputs: dict = None):
     """Groth16 prove over a batched witness (n_vars, 16, B) -> [Proof]*B,
     on the device the key's queries live on (``ProvingKey.to``).
 
     All four G1 MSMs and the pi_B G2 MSM run lane-batched on the device
     (queries of at most host_cutoff points on the host; 0 forces the
-    device), the four G1 MSMs' window sums through one Horner chain; the
-    host applies the r/s blinding. times, when a dict, gets each stage's
-    seconds: h, msm_a, msm_b1, msm_k, msm_h (each up to its window sums),
-    g1_chain (their one chain and affine conversion) and msm_b2."""
+    device): on a card each by K10 to its affine point, on the CPU the four
+    G1 MSMs' window sums through one Horner chain; the host applies the r/s
+    blinding. times, when a dict, gets each stage's seconds: h, msm_a,
+    msm_b1, msm_k, msm_h (each the whole MSM read back on a card, up to its
+    window sums on the CPU), g1_chain (on the CPU their one chain and
+    affine conversion; nothing on a card) and msm_b2. inputs, when a dict,
+    gets each device MSM's scalars (16, B, N) by query name (a, b1, k, h,
+    b2), as its kernel or plain version was given them."""
     if pk.device is None:
         raise ValueError("the proving key's queries are on no device: "
                          "ProvingKey.to(device)")
@@ -562,14 +615,15 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness, seed: int = 1,
     w_s = witness.permute(1, 2, 0)                    # (16, B, nv)
 
     g1 = {name: _timed(times, f"msm_{name}", dev, lambda name=name, sc=sc:
-                       _window_sums(pk, name, sc, host_cutoff))
+                       _window_sums(pk, name, sc, host_cutoff, inputs))
           for name, sc in (("a", w_s), ("b1", w_s),
                            ("k", w_s[:, :, pk.n_public + 1:]),
                            ("h", h.transpose(1, 2)))}
     g1 = _timed(times, "g1_chain", dev, lambda: _finish(g1, "bn254_g1"))
     a_sums, b1_sums, k_sums, h_sums = (g1[k] for k in ("a", "b1", "k", "h"))
     b2_sums = _timed(times, "msm_b2", dev, lambda: _finish(
-        {"b2": _window_sums(pk, "b2", w_s, host_cutoff)}, "bn254_g2"))["b2"]
+        {"b2": _window_sums(pk, "b2", w_s, host_cutoff, inputs)},
+        "bn254_g2"))["b2"]
 
     proofs = []
     for lane in range(batch):

@@ -63,8 +63,16 @@ def limbs_to_int(a) -> int:
 
 
 def ints_to_limbs_batch(xs, k: int) -> np.ndarray:
-    """list of B ints -> (k, B) uint32 (limb-major batch layout)."""
-    return np.stack([int_to_limbs(x, k) for x in xs], axis=-1)
+    """list of B ints -> (k, B) uint32 (limb-major batch layout); raises
+    as int_to_limbs does on a negative int or one too wide for k limbs."""
+    try:
+        raw = b"".join(x.to_bytes(2 * k, "little") for x in xs)
+    except OverflowError:
+        for x in xs:
+            int_to_limbs(x, k)
+        raise
+    return np.frombuffer(raw, dtype="<u2").reshape(-1, k).T.astype(
+        np.uint32, order="C")
 
 
 def limbs_to_ints_batch(a) -> list:

@@ -22,6 +22,8 @@ import pathlib
 import re
 import shutil
 import subprocess
+import threading
+import time
 
 import torch
 
@@ -31,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     "pzk_sha256": [_P, _P, _I, _I, _I, _P],
     "pzk_sha256_many": [_P, _P, _P, _P, _I, _I, _P],
@@ -45,6 +47,12 @@ _SIGNATURES = {
     "pzk_loop": [_I, _P, _P, _P, _I, _I, _P],
     "pzk_probe": [_I, _P, _P, _P, _I, _I, _P],
     "pzk_probe_battery": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "pzk_msm_points": [_I, _P, _P, _L, _P, _P],
+    "pzk_msm_sum": [_I, _P, _P, _P, _P, _P, _L, _P, _P],
+    "pzk_msm_window": [_I, _P, _L, _P, _P, _P],
+    "pzk_msm_combine": [_I, _P, _P, _L, _P, _P],
+    "pzk_msm_horner": [_I, _P, _L, _P, _P, _P],
+    "pzk_fixed_base": [_I, _P, _L, _P, _P, _P, _P],
 }
 
 
@@ -67,16 +75,33 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds, log) -> None:
-    """Run the commands in parallel, append their output to log, and raise
-    if any failed."""
+# seconds of each nvcc process of the last build in this process, by the
+# source it compiled (or "link")
+BUILD_SECONDS = {}
+
+
+def _run_all(cmds, names, log) -> None:
+    """Run the commands in parallel, append their output and seconds to
+    log (and, under names, to BUILD_SECONDS), and raise if any failed."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, cwd=CSRC, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
+    outs = [None] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()[0]
+        BUILD_SECONDS[names[i]] = time.perf_counter() - t0
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     failed = []
-    for cmd, proc in zip(cmds, procs):
-        out = proc.communicate()[0]
-        log.append(" ".join(cmd) + "\n" + out)
+    for cmd, name, proc, out in zip(cmds, names, procs, outs):
+        log.append(" ".join(cmd) + "\n" + out + "\n("
+                   f"{BUILD_SECONDS[name]:.1f} s)")
         if proc.returncode != 0:
             failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
     if failed:
@@ -94,9 +119,10 @@ def build(so: pathlib.Path) -> None:
     log = []
     try:
         _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
-                  for f, o in zip(sources, objs)], log)
+                  for f, o in zip(sources, objs)],
+                 [f.name for f in sources], log)
         _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
-                   *[str(o) for o in objs]]], log)
+                   *[str(o) for o in objs]]], ["link"], log)
     finally:
         (so.parent / "build.log").write_text("\n".join(log))
         for o in objs:
@@ -145,16 +171,37 @@ def ptxas_report(text: str) -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """A kernel's mangled name as its identifier and template values."""
+    """A kernel's mangled name as its identifier and template arguments:
+    int values and (namespace-qualified) type names, as poseidon_kernel<6>
+    or msm_sum_kernel<fq::F1>."""
     m = re.match(r"_Z(\d+)", mangled)
     if m is None:
         return mangled
     start = m.end()
     name = mangled[start:start + int(m.group(1))]
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[start + len(name):])
-    if args:
-        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
-    return name
+    rest = mangled[start + len(name):]
+    if not rest.startswith("I"):
+        return name
+    rest, vals = rest[1:], []
+    while rest and rest[0] != "E":
+        lit = re.match(r"Li(-?\d+)E", rest)
+        if lit:
+            vals.append(lit.group(1))
+            rest = rest[lit.end():]
+            continue
+        nested = rest.startswith("N")       # N <len><id> <len><id> ... E
+        rest, parts = rest[nested:], []
+        while rest[:1].isdigit():
+            n = re.match(r"\d+", rest)
+            parts.append(rest[n.end():n.end() + int(n.group(0))])
+            rest = rest[n.end() + int(n.group(0)):]
+            if not nested:
+                break
+        if not parts:
+            return name                     # an encoding not read here
+        rest = rest[nested:]
+        vals.append("::".join(parts))
+    return name + "<" + ", ".join(vals) + ">"
 
 
 def check(rc: int, name: str) -> None:

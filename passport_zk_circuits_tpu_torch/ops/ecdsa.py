@@ -8,6 +8,10 @@ the public key on the curve and R not at infinity. The key's coordinates
 must also lie in [0, p-1] (SEC 1 v2, 3.2.2.1): the field arithmetic takes
 canonical residues, and a key (x, y + p) is rejected rather than read as
 (x, y).
+
+``verify_blinded`` is the capability twin of the experimental
+``ecdsaBeta.circom`` (the JAX package's ``ops/ecdsa.verify_blinded``): the
+same formulas in the same order, so its verdicts equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -60,3 +64,37 @@ def verify(curve_name: str, pk_x, pk_y, signature, hash_bits):
     ok = ok & bn.lt(pk_x, p_l) & bn.lt(pk_y, p_l)
     ok = ok & on_curve(c, pk_x, pk_y)
     return ok & ~wst.is_inf(c, R)
+
+
+def verify_blinded(curve_name: str, pk_x, pk_y, signature, hash_bits,
+                   beta, alpha_x, alpha_y):
+    """Blinded verification: the prover supplies a blind beta (below
+    2^80) and alpha = beta s^-1 r PK; the check is beta R == (beta u1) G +
+    alpha and x(R) mod n == r, with R = u1 G + u2 PK, u1 = s^-1 h, u2 =
+    s^-1 r, and r, s != 0. pk_x, pk_y, alpha_x, alpha_y: (k, B) field
+    limbs (alpha (0, 0) is infinity); signature (2 kn, B) = r || s;
+    hash_bits (hash_len, B) big-endian bits; beta (kn, B). Returns bool
+    (B,)."""
+    c = wst.ctx(curve_name)
+    kn = c.kn
+    r = signature[:kn]
+    s = signature[kn:2 * kn]
+    h = hash_bits_to_limbs(hash_bits, kn)
+
+    s_inv = c.fn.inv(s)
+    u1, u2 = c.fn.mul(s_inv.unsqueeze(1), c.stack(c.fn.reduce(h), r)) \
+        .unbind(1)
+    R = wst.jac_add(c, wst.fixed_base_mul(c, u1),
+                    wst.scalar_mul_window(c, u2, pk_x, pk_y))
+    rx, ry = wst.to_affine(c, R)
+
+    # beta R (an 80-bit scalar) against (beta u1 mod n) G + alpha
+    lx, ly = wst.to_affine(c, wst.scalar_mul_window(c, beta, rx, ry))
+    right = wst.jac_add_affine(c, wst.fixed_base_mul(c, c.fn.mul(beta, u1)),
+                               alpha_x, alpha_y,
+                               bn.is_zero(alpha_x) & bn.is_zero(alpha_y))
+    rxr, ryr = wst.to_affine(c, right)
+
+    ok = bn.eq(lx, rxr) & bn.eq(ly, ryr)
+    ok = ok & bn.eq(c.fn.reduce(rx), r)
+    return ok & ~bn.is_zero(r) & ~bn.is_zero(s)

@@ -204,6 +204,37 @@ def test_prove_needs_a_key_on_a_device(d):
         g16.prove(bare, cs, w)
 
 
+def test_prove_and_setup_hand_back_their_device_inputs(d, demo_proofs):
+    """prove(inputs=) gets each device MSM's scalars: the witness with the
+    query's infinity points masked, and the h coefficients; the proofs are
+    the same as without it. setup's fixed-base lists past the host cutoff
+    (inputs=) get their limb tensor."""
+    pk, _ = _fixture_keys(d, "demo")
+    cs, w, _ = _circuit(d, "demo")
+    inputs = {}
+    proofs = g16.prove(pk, cs, w, seed=DEMO_SEEDS[1], host_cutoff=0,
+                       inputs=inputs)
+    for p, q in zip(proofs, demo_proofs[2]):
+        _same(p, q)
+    w_s = torch.from_numpy(w.astype(np.int64)).permute(1, 2, 0)
+    assert set(inputs) == {n for n in g16.QUERIES
+                           if getattr(pk, f"{n}_query").shape[-1]}
+    assert torch.equal(inputs["a"], w_s.masked_fill(
+        torch.from_numpy(pk.a_inf), 0))
+    assert torch.equal(inputs["b2"], w_s.masked_fill(
+        torch.from_numpy(pk.b2_inf), 0))
+    assert torch.equal(inputs["h"], g16.h_coefficients(
+        cs, w, device=CPU).transpose(1, 2))
+    ss = [0, 1, fr.P - 1, fr.P + 5] + list(range(2, 511))
+    got = {}
+    (x, inf) = g16._g1_mul_many(ss, CPU, got, "a")
+    assert torch.equal(got["a"], bn.to_tensor(
+        bn.ints_to_limbs_batch([s % fr.P for s in ss], 16), CPU))
+    assert inf.tolist() == [True] + [False] * (len(ss) - 1)
+    assert [(bn.limbs_to_int(x[0][:, i]), bn.limbs_to_int(x[1][:, i]))
+            for i in (1, 2, 3)] == [g16._g1_mul(s) for s in (1, -1, 5)]
+
+
 def test_export_of_a_port_proof_equals_the_jax_export(d, demo_proofs):
     vk, pub, proofs = demo_proofs
     jproofs = _proofs(d, "demo")

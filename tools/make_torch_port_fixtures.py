@@ -6,7 +6,7 @@ what the port is held against: inputs at batch 2, built by the JAX
 package's synthetic generator and builder from a fixed seed, and every
 output of ``register_identity.forward``.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos|query|prove|lowering]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship|algos|query|prove|lowering|blinded]
 
 - ``tests/fixtures/torch_port_flagship_b2.npz``: the flagship config. Keys
   ``seed``, ``in_<PassportInputs field>``, ``in_sk_identity`` and
@@ -63,7 +63,18 @@ output of ``register_identity.forward``.
   a table file into the JAX package's tree. The target takes about 8
   minutes in one process.
 
-With no argument all five files are written.
+- ``tests/fixtures/torch_port_blinded_b2.npz``: ``ops/ecdsa.
+  verify_blinded`` (the experimental ecdsaBeta variant) over p256 on
+  seven lanes of one key (the JAX package's ``utils/ecdsa_ref``, seed
+  ``BLINDED_SEED``): lanes 0 and 1 valid, with blinds beta below 2^80 and
+  alpha = beta s^-1 r PK; lane 2 a wrong beta (beta + 1), lane 3 a wrong
+  alpha (alpha + G), lane 4 a signature of another digest, lane 5 r = 0,
+  lane 6 valid. Keys ``in_pk_x``, ``in_pk_y``, ``in_signature``,
+  ``in_words`` (the SHA-256 digests as big-endian 32-bit words),
+  ``in_beta``, ``in_alpha_x``, ``in_alpha_y`` and ``out_ok``, the JAX
+  function's verdicts (eager: about a minute and a half).
+
+With no argument all six files are written.
 """
 
 import hashlib
@@ -110,6 +121,8 @@ LOWERING_SEED = 20251
 LOWERING_PUBLIC = ("dg15_pubkey_hash", "passport_hash", "dg1_commitment",
                    "pk_identity_hash")
 LOWERING_OUT = ROOT / "tests" / "fixtures" / "torch_port_lowering.npz"
+BLINDED_SEED = 20252
+BLINDED_OUT = ROOT / "tests" / "fixtures" / "torch_port_blinded_b2.npz"
 
 
 def tag(name: str) -> str:
@@ -416,13 +429,56 @@ def lowering_arrays(name: str, seed: int) -> dict:
     return arrays
 
 
+def blinded_arrays(seed: int) -> dict:
+    """The inputs of verify_blinded's seven lanes and the JAX package's
+    verdicts on them (see the module docstring)."""
+    import jax.numpy as jnp
+    from passport_zk_circuits_tpu.ops import bitops
+    from passport_zk_circuits_tpu.ops import ecdsa
+    from passport_zk_circuits_tpu.ops.curves import CURVES
+    from passport_zk_circuits_tpu.utils import ecdsa_ref as ref
+    rng = random.Random(seed)
+    cv = CURVES["p256"]
+    d, pub = ref.keygen(cv, rng)
+    digests = [hashlib.sha256(bytes([i])).digest() for i in range(7)]
+    sigs = [ref.sign(cv, d, dg, rng) for dg in digests]
+    betas = [rng.getrandbits(80) | 1 for _ in digests]
+    alphas = [ref.scalar_mul(cv, beta * pow(s, cv.n - 2, cv.n) * r % cv.n,
+                             pub) for (r, s), beta in zip(sigs, betas)]
+    betas[2] += 1
+    alphas[3] = ref._add(cv, alphas[3], (cv.gx, cv.gy))
+    digests[4] = hashlib.sha256(b"other").digest()
+    sigs[5] = (0, sigs[5][1])
+
+    def limbs(ints):
+        return np.stack([_limbs(v) for v in ints], axis=-1)
+    arrays = {
+        "seed": np.array(seed),
+        "in_pk_x": limbs([pub[0]] * 7), "in_pk_y": limbs([pub[1]] * 7),
+        "in_signature": np.concatenate([limbs([r for r, _ in sigs]),
+                                        limbs([s for _, s in sigs])]),
+        "in_words": np.stack([np.frombuffer(dg, ">u4").astype(np.uint32)
+                              for dg in digests], -1),
+        "in_beta": limbs(betas),
+        "in_alpha_x": limbs([a[0] for a in alphas]),
+        "in_alpha_y": limbs([a[1] for a in alphas])}
+    t = {k: jnp.asarray(v) for k, v in arrays.items() if k != "seed"}
+    bits = bitops.get_bits(t["in_words"], 0, 256)
+    ok = ecdsa.verify_blinded("p256", t["in_pk_x"], t["in_pk_y"],
+                              t["in_signature"], bits, t["in_beta"],
+                              t["in_alpha_x"], t["in_alpha_y"])
+    arrays["out_ok"] = np.asarray(ok)
+    return arrays
+
+
 def save(path: pathlib.Path, arrays: dict) -> None:
     os.makedirs(path.parent, exist_ok=True)
     np.savez_compressed(path, **arrays)
     print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
-def main(which=("flagship", "algos", "query", "prove", "lowering")):
+def main(which=("flagship", "algos", "query", "prove", "lowering",
+               "blinded")):
     import jax
     jax.config.update("jax_platforms", "cpu")
     if "flagship" in which:
@@ -446,8 +502,11 @@ def main(which=("flagship", "algos", "query", "prove", "lowering")):
             print(f"{name}: {int(arrays[tag(name) + 'n_constraints'])} "
                   "constraints, done", flush=True)
         save(LOWERING_OUT, arrays)
+    if "blinded" in which:
+        save(BLINDED_OUT, blinded_arrays(BLINDED_SEED))
 
 
 if __name__ == "__main__":
     main(tuple(sys.argv[1:])
-         or ("flagship", "algos", "query", "prove", "lowering"))
+         or ("flagship", "algos", "query", "prove", "lowering",
+             "blinded"))
