@@ -88,9 +88,11 @@ The script
    and K9 (the battery's one launch, and each of its roles alone) from
    torch.profiler, each held to its kernels' names, and every
    launch of that session to its kernel record; K10's and K11's at the
-   ECDSA p256 circuit's shapes; registers and spills of
-   K1, K6, K7, K10 and K11 from nvcc's -Xptxas -v (no spills but the
-   Fq2 instances of K10 and K11, printed);
+   ECDSA p256 circuit's shapes (with K10's glue, cuda_msm.Schedule,
+   timed apart, and K10's bound under the least Pippenger work and under
+   the first design's count); registers and spills of K1, K6, K7, K10
+   and K11 from nvcc's -Xptxas -v (none may spill: K10's G2 arithmetic
+   runs an Fq2 element over two threads);
 5. builds flagship inputs with the port's ingest, runs
    register_identity.forward on the card, checks the four public outputs
    against the oracles, the verdicts, two tampered lanes, and that the
@@ -475,7 +477,9 @@ OPS_FR_INV = ((fr.P - 2).bit_length() * OPS_MONT_SQR
 # formulas: the mixed add 8 products, 3 squarings, 7 additions, the full
 # add 12, 4 and 7, the doubling (a = 0) 2, 5 and 12; to_affine an
 # inversion, a squaring and 3 products (an Fq2 inversion: 2 squarings, 2
-# products and 2 additions of Fq around an Fq inversion).
+# products and 2 additions of Fq around an Fq inversion); an affine add
+# whose inversion is shared by many (Montgomery's trick) 2 products, a
+# squaring and 6 additions, and 3 products for its share of the inversion.
 OPS_FQ_INV = ((g2.Q - 2).bit_length() * OPS_MONT_SQR
               + window_chain_muls(g2.Q - 2) * OPS_MONT_MUL)
 
@@ -484,7 +488,8 @@ def _ec_ops(mul, sqr, add, inv):
     return {"madd": 8 * mul + 3 * sqr + 7 * add,
             "add": 12 * mul + 4 * sqr + 7 * add,
             "dbl": 2 * mul + 5 * sqr + 12 * add,
-            "affine": inv + sqr + 3 * mul}
+            "affine": inv + sqr + 3 * mul,
+            "batch_add": 5 * mul + sqr + 6 * add}
 
 
 EC_OPS = {
@@ -493,14 +498,75 @@ EC_OPS = {
                   2 * OPS_MONT_MUL + 3 * OPS_FR_ADD, 2 * OPS_FR_ADD,
                   OPS_FQ_INV + 2 * OPS_MONT_SQR + 2 * OPS_MONT_MUL
                   + 2 * OPS_FR_ADD)}
+MSM_WIDTHS = range(4, 21)       # the window widths msm_ops tries
+
+
+def _window_digits(sc, c, signed):
+    """(16, lanes, n) limbs of scalars below 2^254 -> their c-bit digits a
+    window, (lanes, n) each: unsigned, ceil(254 / c) windows, or signed
+    (the carry taken into the next window when a digit is above 2^(c-1)),
+    ceil(255 / c)."""
+    pad = torch.cat([sc, torch.zeros_like(sc[:3])])
+    carry = torch.zeros_like(sc[0])
+    for w in range(-(-(255 if signed else 254) // c)):
+        k, off = divmod(w * c, 16)
+        v = ((pad[k] | (pad[k + 1] << 16) | (pad[k + 2] << 32)) >> off) & (
+            (1 << c) - 1)
+        if signed:
+            v = v + carry
+            carry = (v > 1 << (c - 1)).to(v.dtype)
+            v = v - (carry << c)
+        yield v
+
+
+def msm_work(scalars, is_g2, c, signed):
+    """int32 instructions of Pippenger's bucket method with c-bit windows
+    (signed or unsigned digits) on these scalars (16, *L, N): in each
+    window of each lane, a bucket add an item (a non-zero digit) less one a
+    non-empty bucket, each at the cheaper of the mixed add and the
+    batched-affine add; the running sums, two full adds a digit below the
+    window's largest |digit|; a lane's Horner chain from its top non-empty
+    window (c doublings a window below it, an add a non-empty window below
+    it) and its affine conversion."""
+    e = EC_OPS[is_g2]
+    bucket_add = min(e["madd"], e["batch_add"])
+    sc = scalars.reshape(16, -1, scalars.shape[-1]).long()
+    lanes = sc.shape[1]
+    lane_key = torch.arange(lanes, device=sc.device)[:, None] << c
+    adds, running, nonempty_w = [], [], []
+    for d in _window_digits(sc, c, signed):
+        a = d.abs()
+        nonempty = (torch.bincount((lane_key + a).reshape(-1),
+                                   minlength=lanes << c)
+                    .reshape(lanes, -1)[:, 1:] > 0).sum()
+        adds.append((a != 0).sum() - nonempty)
+        running.append((a.amax(1) - 1).clamp(min=0).sum() * 2)
+        nonempty_w.append(a.amax(1) > 0)
+    nz = torch.stack(nonempty_w)                        # (windows, lanes)
+    windows = torch.arange(1, nz.shape[0] + 1, device=nz.device)[:, None]
+    top = (nz * windows).amax(0)                        # 1 + top window
+    adds, running, dbls, chain_adds, live = torch.stack([
+        sum(adds), sum(running), ((top - 1) * c).clamp(min=0).sum(),
+        (nz.sum(0) - 1).clamp(min=0).sum(), (top > 0).sum()]).tolist()
+    return (adds * bucket_add + running * e["add"] + dbls * e["dbl"]
+            + chain_adds * e["add"] + live * e["affine"])
 
 
 def msm_ops(scalars, is_g2):
-    """int32 instructions of K10's least work on this run's scalars (16,
-    *L, N): a mixed add an item (a non-zero 16-bit digit) less one a
-    non-empty bucket; a window's running sums, two full adds a bucket from
-    its highest digit down; a lane's Horner chain (15 windows of 16
-    doublings and an add) and its affine conversion."""
+    """int32 instructions of the least Pippenger work on this run's
+    scalars (16, *L, N): msm_work's minimum over the window widths
+    MSM_WIDTHS and unsigned or signed digits, whatever plan the kernel
+    follows (K10's bound)."""
+    return min(msm_work(scalars, is_g2, c, signed)
+               for c in MSM_WIDTHS for signed in (False, True))
+
+
+def msm_ops_16bit(scalars, is_g2):
+    """int32 instructions of the first K10 design's least work (its
+    bound, kept for continuity): a mixed add an item (a non-zero 16-bit
+    digit) less one a non-empty bucket; a window's running sums, two full
+    adds a bucket from its highest digit down; a lane's Horner chain (15
+    windows of 16 doublings and an add) and its affine conversion."""
     e = EC_OPS[is_g2]
     sc = scalars.reshape(16, -1, scalars.shape[-1])
     items = int((sc != 0).sum())
@@ -2588,10 +2654,13 @@ def k10_at_prove_shapes(pk, prove_in, entries):
         e["shape"] = (f"{name}_query, {sc.shape[-1]} points, the Light "
                       f"prove's {'h coefficients' if name == 'h' else 'witness'}"
                       f", B = {sc.shape[1]}, the key's Montgomery points")
+        e["bound_16bit_ms"] = bound(msm_bytes(sc, is_g2),
+                                    msm_ops_16bit(sc, is_g2))[0]
         found[name] = e
         del px, py
     found["a"]["h_query"] = {k: found["h"][k] for k in (
-        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "bound_16bit_ms",
+        "max_abs_err")}
     entries.extend([e_points, found["a"], found["b2"]])
 
 
@@ -2620,25 +2689,29 @@ def k11_at_setup_shapes(setup_in, entries):
 
 
 def record_msms(label, pk, prove_in, st, entries):
-    """Each MSM of one prove on the card: its points, items (non-zero
-    16-bit digits of the scalars the prove gave it, prove_in), its stage's
-    seconds (host clock, fenced) and K10's bound on those scalars. Kept in
-    the msm_g1 / msm_g2 entries under "proves"."""
+    """Each MSM of one prove on the card: its points, K10's window width
+    and items (non-zero signed digits of the scalars the prove gave it,
+    prove_in), its stage's seconds (host clock, fenced) and K10's bound on
+    those scalars (and the first design's, msm_ops_16bit). Kept in the
+    msm_g1 / msm_g2 entries under "proves"."""
     for name in g16p.QUERIES:
         sc = prove_in[name]
         is_g2 = name == "b2"
         b_ms, by = bound(msm_bytes(sc, is_g2), msm_ops(sc, is_g2))
-        items = int((sc != 0).sum())
+        b16 = bound(msm_bytes(sc, is_g2), msm_ops_16bit(sc, is_g2))[0]
+        c = cuda_msm.window_bits(sc.shape[-1])
+        items = int((cuda_msm.signed_digits(sc, c) != 0).sum())
         t = st[f"msm_{name}"]
-        print(f"  {label} MSM {name}: {sc.shape[-1]} points, {items} items "
-              f"(non-zero 16-bit digits), {t:.3f} s (K10 with its glue and "
-              f"read-back, host clock), bound {b_ms:.3f} ms ({by}); card: "
-              f"{CARD['name']}")
+        print(f"  {label} MSM {name}: {sc.shape[-1]} points, {c}-bit "
+              f"windows, {items} items, {t:.3f} s (K10 with its glue and "
+              f"read-back, host clock), bound {b_ms:.3f} ms ({by}; 16-bit "
+              f"count {b16:.3f} ms); card: {CARD['name']}")
         e = next(e for e in entries
                  if e["name"] == ("msm_g2" if is_g2 else "msm_g1"))
         e.setdefault("proves", {})[f"{label} {name}"] = {
-            "points": sc.shape[-1], "items": items, "stage_s": t,
-            "bound_ms": b_ms, "bound_by": by}
+            "points": sc.shape[-1], "window_bits": c, "items": items,
+            "stage_s": t, "bound_ms": b_ms, "bound_by": by,
+            "bound_16bit_ms": b16}
 
 
 def profile_prover(pk, prove_in, setup_in, entries):
@@ -2650,17 +2723,34 @@ def profile_prover(pk, prove_in, setup_in, entries):
     by_name = {e["name"]: e for e in entries}
     for name, q, is_g2 in (("msm_g1", "h", False), ("msm_g2", "b2", True)):
         sc, mont = prove_in[q], pk.mont[q]
-        sched = cuda_msm.Schedule(sc, is_g2)
+        glue = []
+        for _ in range(2):              # the second one warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sched = cuda_msm.Schedule(sc, is_g2)
+            torch.cuda.synchronize()
+            glue.append((time.perf_counter() - t0) * 1e3)
         call = cuda_msm.cuda_call(name, sc)
         to_profile(by_name[name],
                    lambda s=sched, m=mont, c=call: cuda_msm.execute(s, m, c),
                    sched.symbols())
         by_name[name]["profile_shape"] = (
             f"{q}_query, {sc.shape[-1]} points, the prove's "
-            f"{'h coefficients' if q == 'h' else 'witness'}, {sched.items} "
-            f"items, {len(sched.passes)} passes")
+            f"{'h coefficients' if q == 'h' else 'witness'}, {sched.c}-bit "
+            f"windows, {sched.items} items, {sched.nonempty} non-empty "
+            f"buckets, {sched.rounds} affine rounds, {sched.passes} passes "
+            f"of runs")
+        by_name[name]["profile_symbols"] = sched.symbols()
+        by_name[name]["profile_glue_ms"] = glue[-1]
         by_name[name]["profile_bound_ms"] = bound(msm_bytes(sc, is_g2),
                                                   msm_ops(sc, is_g2))[0]
+        by_name[name]["profile_bound_16bit_ms"] = bound(
+            msm_bytes(sc, is_g2), msm_ops_16bit(sc, is_g2))[0]
+        print(f"  K10 {name} at the {q}_query's shape: the glue "
+              f"(cuda_msm.Schedule, host clock, fenced) {glue[0]:.2f} ms "
+              f"cold, {glue[1]:.2f} ms warm, apart from the kernels' device "
+              f"time (the profiler's session); "
+              f"{by_name[name]['profile_shape']}; card: {CARD['name']}")
     ax, ay, _ = key_points(pk, "a")
     to_profile(by_name["msm_points"], lambda: cuda_msm.points(ax, ay),
                ["msm_points_kernel"])
@@ -3055,46 +3145,38 @@ def field_path(dev, entries):
                                              SCAN_LEN)
 
 
-PROVER_SYMBOLS = ("msm_points_kernel", "msm_sum_kernel", "msm_window_kernel",
-                  "msm_combine_kernel", "msm_horner_kernel",
+PROVER_SYMBOLS = ("msm_points_kernel", "msm_round_kernel", "msm_sum_kernel",
+                  "msm_reduce_kernel", "msm_horner_kernel",
                   "fixed_base_kernel")
-# the only kernels that may spill: K10's bodies over Fq2
-MSM_G2_SPILLS = tuple(f"msm_{k}_kernel<fq::F2>"
-                      for k in ("sum", "window", "combine", "horner"))
+# every instance of K10 and K11: K10 over G1 on fq::F1Call (Fq with its
+# product a call on the device), its G2 point conversion on fq::F2, its G2
+# arithmetic on fq::F2Pair (an Fq2 element over two threads); K11 on fq::F1
+# and fq::F2
+PROVER_INSTANCES = tuple(
+    [f"{k}<fq::{f}>" for k in PROVER_SYMBOLS[:-1]
+     for f in ("F1Call", "F2" if k == "msm_points_kernel" else "F2Pair")]
+    + ["fixed_base_kernel<fq::F1>", "fixed_base_kernel<fq::F2>"])
 
 
 def ptxas_check():
     """Print the registers and spills nvcc's -Xptxas -v gave K1's, K6's and
     K7's kernels and K10's and K11's in this build (build.log). None may
-    spill but K10's four MSM kernels over Fq2 (G2, MSM_G2_SPILLS), whose
-    spills are printed: a G2 point in Jacobian form is 48 words, and the
-    full add keeps several Fq2 temporaries beside two of them."""
+    spill (K10's G2 arithmetic runs an Fq2 element over two threads: a G2
+    point is then 24 words a thread, as a G1 point is)."""
     report = cuda_build.ptxas_report(
         (cuda_build.BUILD_DIR / "build.log").read_text())
     for name in sorted(report):
         if name.split("<")[0] in PROVER_SYMBOLS:
             print(f"  ptxas {name}: {report[name][0]} registers, spill "
                   f"stores {report[name][1]} B, loads {report[name][2]} B")
-    g2_spills = []
     for name in ("sha256_many_kernel", "sha256_kernel", "fr_mul_kernel",
-                 "fr_mul_chain_kernel") + tuple(
-                     f"{k}<fq::{f}>" for k in PROVER_SYMBOLS
-                     for f in ("F1", "F2")):
+                 "fr_mul_chain_kernel") + PROVER_INSTANCES:
         check(name in report, f"no -Xptxas -v entry for {name}")
         regs, st, ld = report[name]
         if not name.endswith(">"):
             print(f"  ptxas {name}: {regs} registers, spill stores {st} B, "
                   f"loads {ld} B")
-        if name in MSM_G2_SPILLS:
-            if st or ld:
-                g2_spills.append(name)
-        else:
-            check(st == ld == 0, f"{name} spills")
-    if g2_spills:
-        print(f"  ptxas: the G2 (Fq2) instances {', '.join(g2_spills)} spill "
-              "to local memory (cached in L1/L2): a G2 point is 48 words "
-              "and a full add holds several Fq2 temporaries; allowed, not "
-              "failed")
+        check(st == ld == 0, f"{name} spills")
     spilled = sorted(k for k, (_, st, ld) in report.items() if st or ld)
     print(f"  ptxas: {len(report)} kernels, spilling: "
           f"{', '.join(spilled) or 'none'}")

@@ -18,6 +18,7 @@
 #pragma once
 
 #include "fr_bn254.cuh"
+#include "warp.cuh"
 
 // q = 21888242871839275222246405745257275088696311157297823662689037894645226208583
 #define PZK_FQ_Q 0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, \
@@ -55,6 +56,7 @@ using Fe = fr::Elem<Modulus>;
 struct F1 {
   using Fe = fq::Fe;
   static constexpr int WORDS = NW;  // 32-bit words of an element in memory
+  static constexpr int TEAM = 1;    // threads an element
 
   PZK_HD static Fe zero() { return fr::zero<Modulus>(); }
   PZK_HD static Fe one() { return fr::one_mont<Modulus>(); }
@@ -69,10 +71,29 @@ struct F1 {
     for (int i = 0; i < NW; ++i) o |= a.w[i];
     return o == 0;
   }
-  // the words of an element at w[0..WORDS)
-  PZK_HD static Fe get(const uint32_t* w) { return fr::load_words<Modulus>(w); }
+  // the words of an element at w[0..WORDS), w 16-byte aligned: on the
+  // device two 16-byte loads or stores (the points' and buckets' words are
+  // read and written whole, never word by word)
+  PZK_HD static Fe get(const uint32_t* w) {
+#if defined(__CUDA_ARCH__)
+    const uint4 a = reinterpret_cast<const uint4*>(w)[0];
+    const uint4 b = reinterpret_cast<const uint4*>(w)[1];
+    Fe r;
+    r.w[0] = a.x, r.w[1] = a.y, r.w[2] = a.z, r.w[3] = a.w;
+    r.w[4] = b.x, r.w[5] = b.y, r.w[6] = b.z, r.w[7] = b.w;
+    return r;
+#else
+    return fr::load_words<Modulus>(w);
+#endif
+  }
   PZK_HD static void put(const Fe& a, uint32_t* w) {
+#if defined(__CUDA_ARCH__)
+    uint4* v = reinterpret_cast<uint4*>(w);
+    v[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
+    v[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+#else
     for (int i = 0; i < NW; ++i) w[i] = a.w[i];
+#endif
   }
   // column j of a (16, n) limb tensor, x = its base + j: normal form in,
   // Montgomery form out (and back for store)
@@ -84,6 +105,32 @@ struct F1 {
   }
 };
 
+#if defined(__CUDA_ARCH__)
+// fr_bn254.cuh's product as one function that every product of a kernel
+// calls (internal linkage: a copy per source), not a copy of its unrolled
+// loop at every call site: an inlined point add is some 16 of those, about
+// 100 KB of code, and K10's kernels ran out of the instruction cache
+static __device__ __noinline__ Fe mul_call(const Fe a, const Fe b) {
+  return fr::mul(a, b);
+}
+#endif
+
+// Fq as K10's field policy: F1 with its product a call on the device (the
+// host build runs the same loop inline)
+struct F1Call : F1 {
+  PZK_HD static Fe mul(const Fe& a, const Fe& b) {
+#if defined(__CUDA_ARCH__)
+    return mul_call(a, b);
+#else
+    return fr::mul(a, b);
+#endif
+  }
+  PZK_HD static Fe sqr(const Fe& a) { return mul(a, a); }
+  PZK_HD static Fe inv(const Fe& a) {
+    return fr::inv<F1Call, Modulus>(F1Call{}, a);
+  }
+};
+
 struct Fe2 {
   Fe c0, c1;
 };
@@ -92,6 +139,7 @@ struct Fe2 {
 struct F2 {
   using Fe = Fe2;
   static constexpr int WORDS = 2 * NW;
+  static constexpr int TEAM = 1;
 
   PZK_HD static Fe zero() { return {F1::zero(), F1::zero()}; }
   PZK_HD static Fe one() { return {F1::one(), F1::zero()}; }
@@ -136,6 +184,84 @@ struct F2 {
   PZK_HD static void store(const Fe& a, int64_t* x, long n) {
     F1::store(a.c0, x, 2 * n);
     F1::store(a.c1, x + n, 2 * n);
+  }
+};
+
+// Fq2 over a pair of neighbouring threads on F1Call, thread i holding
+// component c_i of every element (wp::Group<2>, this_group): a G2 point is
+// then 24 words a thread, as a G1 point is, where one thread holding all 48
+// words of a Jacobian G2 point and a full add's temporaries spills. The
+// same static interface as F2 and the same words in memory (a thread reads
+// and writes its own half), so bn254_curve.cuh's formulas run on it
+// unchanged; every answer they branch on (is_zero) is the pair's, so both
+// threads take every branch together, and the exchange names the pair
+// alone (from_group). A product is schoolbook over the pair: thread 0
+// a0 b0 - a1 b1, thread 1 a1 b0 + a0 b1, two products of Fq a thread.
+struct F2Pair {
+  using Fe = fq::Fe;
+  static constexpr int WORDS = 2 * NW;
+  static constexpr int TEAM = 2;    // threads an element
+
+  PZK_HD static wp::Group<2> g() { return wp::this_group<2>(); }
+  // the other thread's component of a
+  PZK_HD static Fe other(const Fe& a) {
+    const wp::Group<2> p = g();
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) r.w[k] = p.from_group(a.w[k], p.i ^ 1u);
+    return r;
+  }
+  PZK_HD static Fe pick(bool c, const Fe& a, const Fe& b) {
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) r.w[k] = c ? a.w[k] : b.w[k];
+    return r;
+  }
+
+  PZK_HD static Fe zero() { return F1Call::zero(); }
+  PZK_HD static Fe one() {
+    return pick(g().i == 0, F1Call::one(), F1Call::zero());
+  }
+  PZK_HD static Fe add(const Fe& a, const Fe& b) { return F1Call::add(a, b); }
+  PZK_HD static Fe sub(const Fe& a, const Fe& b) { return F1Call::sub(a, b); }
+  PZK_HD static Fe mul(const Fe& a, const Fe& b) {
+    const bool one = g().i == 1;
+    const Fe ao = other(a), bo = other(b);
+    const Fe m1 = F1Call::mul(pick(one, ao, a), b);        // a0 b0 | a0 b1
+    const Fe m2 = F1Call::mul(pick(one, a, ao), bo);       // a1 b1 | a1 b0
+    return F1Call::add(m1, pick(one, m2, F1Call::sub(F1Call::zero(), m2)));
+  }
+  // (a0 + a1 u)^2: thread 0 (a0 + a1)(a0 - a1), thread 1 2 a1 a0
+  PZK_HD static Fe sqr(const Fe& a) {
+    const bool one = g().i == 1;
+    const Fe ao = other(a);
+    return F1Call::mul(pick(one, F1Call::add(a, a), F1Call::add(a, ao)),
+                   pick(one, ao, F1Call::sub(a, ao)));
+  }
+  // 1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2), the pair's one inversion
+  // of Fq computed by both; 0 for a = 0
+  PZK_HD static Fe inv(const Fe& a) {
+    const Fe s = F1Call::sqr(a);
+    const Fe n = F1Call::inv(F1Call::add(s, other(s)));
+    return F1Call::mul(pick(g().i == 1, F1Call::sub(F1Call::zero(), a), a), n);
+  }
+  PZK_HD static bool is_zero(const Fe& a) {
+    const wp::Group<2> p = g();
+    const bool z = F1Call::is_zero(a);
+    const bool zo = p.from_group(z, p.i ^ 1u);  // both threads exchange
+    return z && zo;
+  }
+  PZK_HD static Fe get(const uint32_t* w) {
+    return F1Call::get(w + g().i * NW);
+  }
+  PZK_HD static void put(const Fe& a, uint32_t* w) {
+    F1Call::put(a, w + g().i * NW);
+  }
+  PZK_HD static Fe load(const int64_t* x, long n) {
+    return F1Call::load(x + g().i * n, 2 * n);
+  }
+  PZK_HD static void store(const Fe& a, int64_t* x, long n) {
+    F1Call::store(a, x + g().i * n, 2 * n);
   }
 };
 

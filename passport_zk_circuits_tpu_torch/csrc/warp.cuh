@@ -41,9 +41,12 @@ struct Flags<32> {
 #ifndef __CUDACC__
 // Defined by a host build that includes this header: thread i of the group
 // being run offers x and gets what thread src offered (group_from), or
-// every thread's flag, bit k from thread k (group_ballot).
+// every thread's flag, bit k from thread k (group_ballot); group_thread is
+// the thread being run (for this_group, where a policy finds its group
+// itself).
 uint32_t group_from(unsigned i, uint32_t x, unsigned src);
 unsigned group_ballot(unsigned i, bool p);
+unsigned group_thread();
 #endif
 
 template <int G>
@@ -57,6 +60,20 @@ struct Group {
   PZK_HD uint32_t from(uint32_t x, unsigned src) const {
 #if defined(__CUDA_ARCH__)
     return __shfl_sync(0xFFFFFFFFu, x, (int)(src % G), G);
+#elif defined(__CUDACC__)
+    __builtin_trap();  // nvcc's host pass: group code runs on the device only
+#else
+    return group_from(i, x, src % G);
+#endif
+  }
+
+  // x as held by group thread src, where the group may run apart from the
+  // rest of its warp (the group branches on its own data, its threads
+  // together): the shuffle names the group's threads alone
+  PZK_HD uint32_t from_group(uint32_t x, unsigned src) const {
+#if defined(__CUDA_ARCH__)
+    const unsigned mask = G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1) << shift;
+    return __shfl_sync(mask, x, (int)(src % G), G);
 #elif defined(__CUDACC__)
     __builtin_trap();  // nvcc's host pass: group code runs on the device only
 #else
@@ -126,5 +143,18 @@ __device__ __forceinline__ Group<G> device_group() {
   return Group<G>{l % G, l - l % G};
 }
 #endif
+
+// The calling thread's group, on the device or in a host build
+// (group_thread)
+template <int G>
+PZK_HD Group<G> this_group() {
+#if defined(__CUDA_ARCH__)
+  return device_group<G>();
+#elif defined(__CUDACC__)
+  __builtin_trap();  // nvcc's host pass: group code runs on the device only
+#else
+  return Group<G>{group_thread(), 0};
+#endif
+}
 
 }  // namespace wp

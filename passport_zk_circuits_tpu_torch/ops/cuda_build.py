@@ -48,10 +48,10 @@ _SIGNATURES = {
     "pzk_probe": [_I, _P, _P, _P, _I, _I, _P],
     "pzk_probe_battery": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
     "pzk_msm_points": [_I, _P, _P, _L, _P, _P],
-    "pzk_msm_sum": [_I, _P, _P, _P, _P, _P, _L, _P, _P],
-    "pzk_msm_window": [_I, _P, _L, _P, _P, _P],
-    "pzk_msm_combine": [_I, _P, _P, _L, _P, _P],
-    "pzk_msm_horner": [_I, _P, _L, _P, _P, _P],
+    "pzk_msm_round": [_I, _P, _P, _P, _P, _L, _L, _P, _P],
+    "pzk_msm_sum": [_I, _P, _I, _P, _P, _P, _L, _P, _P, _P],
+    "pzk_msm_reduce": [_I, _P, _P, _P, _P, _L, _P, _P, _P],
+    "pzk_msm_horner": [_I, _P, _I, _I, _L, _P, _P, _P],
     "pzk_fixed_base": [_I, _P, _L, _P, _P, _P, _P],
 }
 

@@ -15,11 +15,14 @@ version's bit for bit whatever the order of the additions. A CPU tensor
 takes the plain version; a CUDA tensor launches the kernels or raises.
 
 The glue below moves indices only (csrc/msm.cuh describes the plan): a
-window is one 16-bit limb of the scalar; the (lane, window, digit, point)
-items with a non-zero digit are sorted by bucket with ``torch.sort``; runs
-of at most ``RUN`` items of a bucket go to one thread each, and the pass
-repeats over the partial sums until every bucket has one; then the
-buckets' running sums, the windows and the lanes' Horner chains. Every
+window is c bits of the scalar (``window_bits``: c from the point count),
+its digit signed with the carry taken into the next window
+(``signed_digits``); the (lane, window, |digit|, point) items with a
+non-zero digit are sorted by bucket with ``torch.sort``; rounds of affine
+pair adds halve every bucket while they hold enough adds to fill the card,
+runs of what is left go to one thread each, in passes until every bucket
+has one; groups of each window's non-empty buckets are weighted by their
+digits and joined by runs again; then the lanes' Horner chains. Every
 group operation runs in a kernel. ``Schedule`` is the glue, computed from
 the scalars alone; ``execute`` launches its kernels through a
 ``call(entry, *args)``, so that tests run the same glue over a host build
@@ -41,12 +44,18 @@ from . import cuda_build
 from . import g2 as _g2
 from . import msm as _msm
 
-C = 16                      # window bits: a window's digit is a scalar limb
-NWIN = 16
-NBUCKET = 1 << C
-RUN = 32                    # items a thread adds
-SEG = 256                   # buckets a thread of the window pass sums
-NSEG = NBUCKET // SEG
+# The plan's sizes, tried on an H100 with tools/msm_bench at the ECDSA p256
+# prove's sizes (PERF.md): a round after the first pays an
+# inversion's latency a thread, so it runs only while it holds 2^22 adds;
+# what is left goes to runs of mixed adds.
+C_MIN, C_MAX = 8, 16        # window bits, log2(points) - 3 clamped
+ROUND_MIN_ADDS = 1 << 22    # the adds a round after the first must hold
+ROUND_THREADS = 1 << 16     # threads a round aims at
+PER_MIN, PER_MAX = 32, 256  # affine adds a thread of a round shares an inverse
+RUN_THREADS = 1 << 15       # threads a pass of runs aims at
+RUN_MIN, RUN_MAX = 4, 32    # points a thread of a pass adds
+GROUP = 16                  # non-empty buckets a thread of the reduction
+MAX_ITEMS = 1 << 29         # 4 items (the rounds' slots) fit an int32
 _R_MOD_Q = (1 << 256) % _g2.Q
 
 
@@ -111,93 +120,217 @@ def points(px, py, curve: str = "bn254_g1"):
 points.launches = 0
 
 
-def runs(key):
-    """One pass's runs over items sorted by bucket (key): each bucket's
-    items cut into runs of at most RUN. Returns (start, len, the index in
-    buckets of each run's bucket, the buckets)."""
-    buckets, counts = torch.unique_consecutive(key, return_counts=True)
-    nruns = (counts + RUN - 1) // RUN
-    run_bucket = torch.repeat_interleave(
-        torch.arange(len(buckets), device=key.device), nruns)
-    first_run = torch.cumsum(nruns, 0) - nruns
-    k = (torch.arange(len(run_bucket), device=key.device)
-         - first_run[run_bucket])
-    first_item = torch.cumsum(counts, 0) - counts
-    start = first_item[run_bucket] + k * RUN
-    length = torch.clamp(counts[run_bucket] - k * RUN, max=RUN)
-    return start, length, run_bucket, buckets
+def window_bits(n: int) -> int:
+    """c, the bits of a window of an MSM over n points: log2(n) - 3 (the
+    bucket adds, about n a window, against the reduction's 2^c a window),
+    clamped to C_MIN..C_MAX."""
+    return max(C_MIN, min(C_MAX, n.bit_length() - 4))
+
+
+def signed_digits(scalars, c: int):
+    """(16, *L, N) 16-bit limbs of scalars below 2^254 -> (lanes, nwin, N)
+    int32 digits in [-(2^(c-1) - 1), 2^(c-1)], nwin = ceil(255 / c): window
+    w's c bits plus the carry from below, less 2^c (and a carry up) when
+    that is above 2^(c-1). The top window takes the last carry."""
+    dev = scalars.device
+    flat = scalars.reshape(16, -1, scalars.shape[-1]).to(torch.int32)
+    nwin = -(-255 // c)
+    half, mask = 1 << (c - 1), (1 << c) - 1
+    # every window's c bits at once, from the two limbs under it (the one
+    # past the top is zero): (nwin, lanes, n)
+    k = torch.tensor([w * c // 16 for w in range(nwin)], device=dev)
+    off = torch.tensor([w * c % 16 for w in range(nwin)], dtype=torch.int32,
+                       device=dev)[:, None, None]
+    pad = torch.cat([flat, torch.zeros_like(flat[:1])])
+    bits = (((pad.index_select(0, k) | (pad.index_select(0, k + 1) << 16))
+             >> off) & mask)
+    carry = torch.zeros_like(bits[0])
+    for w in range(nwin):
+        v = bits[w] + carry
+        carry = (v > half).to(torch.int32)
+        bits[w] = v - (carry << c)
+    return bits.transpose(0, 1)
+
+
+def segments(counts, first, run):
+    """Cut each segment s (counts[s] consecutive elements from first[s])
+    into runs of at most run (an int, or run[s] a segment): (the runs'
+    starts, their ends, their segments, the runs of each segment), on
+    counts' device."""
+    nr = (counts + run - 1) // run
+    like = dict(device=counts.device, dtype=torch.int32)
+    seg = torch.repeat_interleave(torch.arange(len(counts), **like), nr,
+                                  output_size=int(nr.sum()))
+    k = torch.arange(len(seg), **like) - torch.repeat_interleave(
+        torch.cumsum(nr, 0, dtype=torch.int32) - nr, nr, output_size=len(seg))
+    if torch.is_tensor(run):
+        run = run.index_select(0, seg)
+    start = first.index_select(0, seg) + k * run
+    stop = torch.minimum(start + run,
+                         (first + counts).index_select(0, seg))
+    return start, stop, seg, nr
+
+
+def _clamp_div(n, by, lo, hi):
+    return max(lo, min(hi, -(-n // by)))
+
+
+MONT = object()                 # execute's points, in a step's arguments
+_SYMBOLS = {"pzk_msm_round": "msm_round_kernel",
+            "pzk_msm_sum": "msm_sum_kernel",
+            "pzk_msm_reduce": "msm_reduce_kernel",
+            "pzk_msm_horner": "msm_horner_kernel"}
+HOST_PLAN = 1 << 12             # segments few enough to plan on the host
 
 
 class Schedule:
-    """An MSM's launches, from its scalars alone: the sorted items' points
-    (idx), each pass's runs (start, len, dest, out) and the buffers of the
-    window, combine and Horner kernels. ``execute`` replays it on any
-    points of the same count; the outputs are x and y."""
+    """An MSM's launches, from its scalars alone (16, *L, N): the window
+    width, the sorted items' points (idx: 2 j + 1 for point j negated), the
+    affine rounds' pairs, the runs of each pass, the reduction's groups and
+    every buffer, as ``steps``, (C entry, arguments) in order, MONT where
+    the points go. ``execute`` replays it on any points of the same count;
+    the outputs are x and y. Index arrays are int32, the kernels' words:
+    an MSM of more than MAX_ITEMS non-zero digits over its lanes, or of
+    more than 2^31 buckets, raises ValueError (split its lanes)."""
 
     def __init__(self, scalars, g2: bool):
-        dev = scalars.device
+        self.dev = dev = scalars.device
         n = scalars.shape[-1]
         self.g2 = g2
         self.lshape = tuple(scalars.shape[1:-1])
         lanes = math.prod(self.lshape)
-        jw = 3 * coord_words(g2)
-        # items: digit d of window w of lane l at point j, d != 0; flat
-        # index (l * NWIN + w) * n + j; bucket (l * NWIN + w) * NBUCKET + d
-        flat = scalars.reshape(NWIN, lanes, n).transpose(0, 1).reshape(-1)
-        nz = torch.nonzero(flat).squeeze(1)
+        self.c = c = window_bits(n)
+        half = 1 << (c - 1)
+        self.jw = 3 * coord_words(g2)
+        i32 = dict(device=dev, dtype=torch.int32)
+        d = signed_digits(scalars, c)
+        self.nwin = nwin = d.shape[1]
+        # items: digit d of window w of lane l at point j, d != 0: bucket
+        # (l * nwin + w) * half + |d| - 1, idx 2 j + (d < 0); sorted by
+        # bucket
+        d = d.reshape(lanes * nwin, n)
+        nz = torch.nonzero(d.reshape(-1)).squeeze(1)
+        if len(nz) > MAX_ITEMS or lanes * nwin * half > 1 << 31:
+            raise ValueError(
+                f"msm: {len(nz)} non-zero digits in {lanes * nwin * half} "
+                f"buckets over {lanes} lanes, more than the int32 plan holds "
+                f"({MAX_ITEMS} digits, 2^31 buckets): split the lanes")
+        lw = torch.arange(lanes * nwin, **i32)
         key, order = torch.sort(
-            torch.div(nz, n, rounding_mode="floor") * NBUCKET + flat[nz])
+            (lw[:, None] * half + d.abs() - 1).reshape(-1).index_select(0, nz))
+        j2 = torch.arange(0, 2 * n, 2, **i32)
+        idx = (j2[None, :] | (d < 0)).reshape(-1).index_select(
+            0, nz.index_select(0, order))
+        del d, nz, order
         self.items = len(key)
-        self.idx = nz[order] % n
-        del flat, nz, order
-        self.buckets = torch.zeros((lanes * NWIN * NBUCKET, jw),
-                                   dtype=torch.int32, device=dev)
-        self.passes = []
-        while key.numel():
-            start, length, run_bucket, ids = runs(key)
-            final = len(run_bucket) == len(ids)
-            out = self.buckets if final else torch.empty(
-                (len(run_bucket), jw), dtype=torch.int32, device=dev)
-            dest = ids if final else torch.arange(len(run_bucket), device=dev)
-            self.passes.append((start, length, dest, out))
-            if final:
-                self.nonempty = len(ids)
-                break
-            key = ids[run_bucket]
-        if not self.passes:
-            self.nonempty = 0
-        self.s = torch.empty((lanes * NWIN * NSEG, jw), dtype=torch.int32,
-                             device=dev)
-        self.t = torch.empty_like(self.s)
-        self.wsum = torch.empty((lanes * NWIN, jw), dtype=torch.int32,
-                                device=dev)
+        ids, counts = torch.unique_consecutive(key, return_counts=True)
+        del key
+        self.nonempty = nb = len(ids)
+        self.steps = []
+        # rounds of affine pair adds: round 0 always (it gathers and negates
+        # the items' points), a later one while it holds ROUND_MIN_ADDS.
+        # Slot t of bucket b, i = t - out_first[b], sums elements a and a + 1
+        # from a = first[b] + 2 i (src = 2 a + 1), but the last slot of a
+        # bucket of odd count takes a alone (src = 2 a).
+        m = counts.to(torch.int32)
+        first, cur, bufs = torch.cumsum(m, 0, dtype=torch.int32) - m, None, []
+        adds = int((m // 2).sum())
+        while nb and (cur is None or adds >= ROUND_MIN_ADDS):
+            mo = (m + 1) // 2
+            nout, adds = torch.stack([mo.sum(), (mo // 2).sum()]).tolist()
+            out_first = torch.cumsum(mo, 0, dtype=torch.int32) - mo
+            src = torch.repeat_interleave(2 * first - 4 * out_first + 1, mo,
+                                          output_size=nout)
+            src += torch.arange(0, 4 * nout, 4, **i32)
+            src.index_put_((out_first + mo - 1,), -(m & 1), accumulate=True)
+            if len(bufs) < 2:
+                bufs.append(torch.empty((nout, 2 * coord_words(g2)), **i32))
+            out = bufs[len(self.steps) % 2][:nout]
+            per = _clamp_div(nout, ROUND_THREADS, PER_MIN, PER_MAX)
+            self.steps.append(("pzk_msm_round", [
+                MONT if cur is None else None, idx if cur is None else None,
+                cur, src, nout, per, out]))
+            m, first, cur = mo, out_first, out
+        self.rounds = len(self.steps)
+        # runs of what is left of each bucket, until one a bucket
+        self.buckets = torch.empty((nb, self.jw), **i32)
+        if nb:
+            self._passes(cur, 1, m, first, torch.arange(nb, **i32),
+                         self.buckets)
+        # groups of GROUP non-empty buckets of a lane-window that holds at
+        # least half the digits up to its largest (the running sum's steps
+        # then mostly one add), of one bucket in a sparser one (its digit's
+        # double-and-add alone, every bucket in parallel), weighted by their
+        # digits; the groups' sums joined a lane-window
+        self.wsum = torch.zeros((lanes * nwin, self.jw), **i32)
+        if nb:
+            dig = ids % half + 1
+            lw, per_lw = torch.unique_consecutive(ids // half,
+                                                  return_counts=True)
+            lw, per_lw, top = (t.to(torch.int32).cpu() for t in (
+                lw, per_lw, dig.index_select(0, torch.cumsum(per_lw, 0) - 1)))
+            start, _, seg, ng = segments(
+                per_lw, torch.cumsum(per_lw, 0, dtype=torch.int32) - per_lw,
+                torch.where(2 * per_lw >= top, GROUP, 1).to(torch.int32))
+            self._passes(*self._step(
+                "pzk_msm_reduce", [self.buckets, dig],
+                [torch.cat([start, start.new_tensor([nb])])], lw, seg, ng,
+                self.wsum), self.wsum)
         coord = (16, 2) if g2 else (16,)
         self.x = torch.empty(coord + (lanes,), dtype=torch.int64, device=dev)
         self.y = torch.empty_like(self.x)
+        self.steps.append(("pzk_msm_horner", [self.wsum, nwin, c, lanes,
+                                              self.x, self.y]))
+        self.passes = sum(e == "pzk_msm_sum" for e, _ in self.steps)
+
+    def _step(self, entry, head, cols, dest, seg, nr, last):
+        """Append a pass's launch over the runs (or groups) of segments seg:
+        its arguments head, then the index arrays cols (on the host when
+        planned there: one upload with the dests), then the dests; those
+        of a segment with one run write its point to last[dest] (dest[s]
+        for segment s), the others their partial sums to a new buffer,
+        returned with what ``_passes`` takes of the segments that need
+        more."""
+        one = nr.index_select(0, seg) == 1
+        out = None if bool(one.all()) else torch.empty(
+            (len(seg), self.jw), dtype=torch.int32, device=self.dev)
+        cols = cols + [torch.where(one, dest.index_select(0, seg), -1)]
+        if cols[0].device != self.dev:
+            cols = list(torch.cat(cols).to(self.dev).split(
+                [len(c) for c in cols]))
+        self.steps.append((entry, head + cols + [len(seg), out, last]))
+        more = torch.nonzero(nr > 1).squeeze(1)
+        return (out, 0, nr.index_select(0, more), (torch.cumsum(
+            nr, 0, dtype=torch.int32) - nr).index_select(0, more),
+            dest.index_select(0, more))
+
+    def _passes(self, cur, aff, counts, first, dest, last):
+        """Passes of runs over cur (affine, aff, or Jacobian elements),
+        segments of counts consecutive elements from first, until each
+        segment's sum is at last[dest]; a segment leaves the passes once
+        it is. Few segments are planned on the host."""
+        while len(counts):
+            if counts.is_cuda and len(counts) <= HOST_PLAN:
+                counts, first, dest = torch.stack(
+                    [counts, first, dest]).cpu()
+            run = _clamp_div(int(counts.sum()), RUN_THREADS, RUN_MIN, RUN_MAX)
+            start, stop, seg, nr = segments(counts, first, run)
+            cur, aff, counts, first, dest = self._step(
+                "pzk_msm_sum", [cur, aff], [start, stop], dest, seg, nr, last)
 
     def symbols(self):
         """The kernels one ``execute`` launches, in order."""
-        return (["msm_sum_kernel"] * len(self.passes)
-                + ["msm_window_kernel", "msm_combine_kernel",
-                   "msm_horner_kernel"])
+        return [_SYMBOLS[e] for e, _ in self.steps]
 
 
 def execute(sched: Schedule, mont, call):
     """Launch sched's kernels over the points mont (``points``' words)
     through call(entry, *args) (a C entry of csrc/msm.cu and its
     arguments, tensors as they are); returns affine normal-form limbs (x,
-    y), (16[, 2], *L). The buckets that no pass writes stay infinity (the
-    zeros of their allocation), so a schedule may run again."""
-    g2 = int(sched.g2)
-    items, idx = mont, sched.idx
-    for start, length, dest, out in sched.passes:
-        call("pzk_msm_sum", g2, items, idx, start, length, dest, len(start),
-             out)
-        items, idx = out, None
-    call("pzk_msm_window", g2, sched.buckets, len(sched.s), sched.s, sched.t)
-    call("pzk_msm_combine", g2, sched.s, sched.t, len(sched.wsum), sched.wsum)
-    call("pzk_msm_horner", g2, sched.wsum, sched.x.shape[-1], sched.x,
-         sched.y)
+    y), (16[, 2], *L). The window sums that no step writes stay infinity
+    (the zeros of their allocation), so a schedule may run again."""
+    for entry, args in sched.steps:
+        call(entry, int(sched.g2), *(mont if a is MONT else a for a in args))
     coord = tuple(sched.x.shape[:-1])
     return (sched.x.reshape(coord + sched.lshape),
             sched.y.reshape(coord + sched.lshape))

@@ -2,10 +2,12 @@
 over G1 and G2) and K11 (ops/cuda_fixed_base: [s]G over G1 and G2), each
 bit-equal to its plain PyTorch version on the same CUDA tensors (and to
 the host's ints on small cases): mostly 0 and 1 scalars, N not a power of
-two, all scalars zero, a masked infinity point, B = 2 lanes, G2; 0, 1 and
-r - 1 for K11. Then Groth16 on RegisterIdentityLight at its real size
-(batch 2): the Light forward on the card gives the public values, the
-circuit (55,438 wires, 55,805 constraints) passes ``check_batched``, and
+two, all scalars zero, a masked infinity point, B = 2 lanes, G2, K10 at
+every window width its schedule picks (8..16 bits) on points and on a
+key's Montgomery words alone; 0, 1 and r - 1 for K11. Then Groth16 on
+RegisterIdentityLight at its real size (batch 2): the Light forward on
+the card gives the public values, the circuit (55,438 wires, 55,805
+constraints) passes ``check_batched``, and
 both lanes' proofs from ``setup`` (K11) and ``prove`` (K10) verify, while
 a wrong public input fails. Needs a CUDA device and skips without one;
 the Light prove is a whole-system test, so also slow. The machine with
@@ -124,6 +126,104 @@ def test_k10_on_a_key_s_montgomery_points_alone(dev, is_g2):
     got = cuda_msm.msm_affine(None, None, sc, curve, mont=mont)
     want = msm.msm_affine(px, py, sc, curve)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the plan's constants (ROUND_MIN_ADDS, GROUP) as K10 ships them, then
+# forced so that every affine round runs, then so that rounds stop part
+# way and the bucket tails and the reduction's groups go through several
+# passes: the later rounds (each reading the one before from the other
+# buffer) and the deep passes run only at the p256 shapes otherwise
+PLANS = ((), ((("ROUND_MIN_ADDS", 1), ("GROUP", 2))),
+         ((("ROUND_MIN_ADDS", 40), ("GROUP", 3))))
+
+
+def _plans(monkeypatch):
+    """Set each of PLANS in turn on cuda_msm (monkeypatch undoes them at
+    the test's end), yielding it."""
+    for plan in PLANS:
+        for name, value in plan:
+            monkeypatch.setattr(cuda_msm, name, value)
+        yield plan
+
+
+@pytest.mark.parametrize("c", range(cuda_msm.C_MIN, cuda_msm.C_MAX + 1))
+def test_k10_g1_at_every_window_width(dev, monkeypatch, c):
+    """K10 at each window width the schedule can pick (forced: 2^(c+3)
+    points pick c), full-width and mostly 0 and 1 lanes, on the card's
+    points and on the same points as a key's Montgomery words alone,
+    against the plain MSM, with the plan as shipped and with its rounds,
+    passes and groups forced deep (PLANS), and its first 40 points
+    against the host's ints."""
+    monkeypatch.setattr(cuda_msm, "window_bits", lambda n: c)
+    rng = random.Random(200 + c)
+    n = 1500
+    px, py = _points(rng, n, False, dev)
+    sc = torch.cat([_scalars(rng, n, 1, "full", dev),
+                    _scalars(rng, n, 2, "skewed", dev)[:, 1:]], 1)
+    want = msm.msm_affine(px, py, sc)
+    mont = cuda_msm.points(px, py)
+    for plan in _plans(monkeypatch):
+        sched = cuda_msm.Schedule(sc, False)
+        if plan:                     # the deep plans take effect
+            assert sched.rounds >= 3
+        for got in (cuda_msm.msm_g1(px, py, sc),
+                    cuda_msm.msm_g1(None, None, sc, mont=mont)):
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1])
+    m = 40
+    x, y = (t.cpu().numpy() for t in cuda_msm.msm_g1(
+        px[:, :m].contiguous(), py[:, :m].contiguous(),
+        sc[..., :m].contiguous()))
+    query = torch.stack([px[:, :m], py[:, :m]]).cpu().numpy()
+    assert [None if not (x[:, i].any() or y[:, i].any()) else
+            (bn.limbs_to_int(x[:, i]), bn.limbs_to_int(y[:, i]))
+            for i in range(2)] == g16._msm_lanes_host(
+                query, sc[..., :m].cpu().numpy(), 2, False)
+
+
+@pytest.mark.parametrize("c", [8, 12, 16])
+def test_k10_g2_at_window_widths(dev, monkeypatch, c):
+    """K10 over G2 (an Fq2 element over two threads) at the narrowest,
+    a middle and the widest window, against the plain MSM, on the points
+    and on a key's Montgomery words alone, with the plan as shipped and
+    forced deep (PLANS), and its first 8 points against the host's
+    ints."""
+    monkeypatch.setattr(cuda_msm, "window_bits", lambda n: c)
+    rng = random.Random(300 + c)
+    n = 300
+    px, py = _points(rng, n, True, dev)
+    sc = _scalars(rng, n, 2, "full" if c != 12 else "skewed", dev)
+    want = msm.msm_affine(px, py, sc, "bn254_g2")
+    mont = cuda_msm.points(px, py, "bn254_g2")
+    for plan in _plans(monkeypatch):
+        sched = cuda_msm.Schedule(sc, True)
+        if plan:
+            assert sched.rounds >= 3
+        for got in (cuda_msm.msm_g2(px, py, sc),
+                    cuda_msm.msm_g2(None, None, sc, mont=mont)):
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1])
+    m = 8
+    small = cuda_msm.msm_g2(px[..., :m].contiguous(), py[..., :m].contiguous(),
+                            sc[..., :m].contiguous())
+    query = torch.stack([px[..., :m], py[..., :m]]).cpu().numpy()
+    assert [g2.limbs_to_point(small[0][..., i], small[1][..., i])
+            for i in range(2)] == g16._msm_lanes_host(
+                query, sc[..., :m].cpu().numpy(), 2, True)
+
+
+def test_k10_picks_its_width_from_the_point_count(dev):
+    """On both sides of the switch at 2^12 points (8 and 9-bit windows),
+    the width K10 picks itself, against the plain MSM."""
+    rng = random.Random(4096)
+    px, py = _points(rng, 4097, False, dev)
+    sc = _scalars(rng, 4097, 2, "full", dev)
+    for n in (4095, 4096):
+        assert cuda_msm.Schedule(sc[..., :n], False).c == (8 if n < 4096
+                                                           else 9)
+        p, q, s = (t[..., :n].contiguous() for t in (px, py, sc))
+        got, want = cuda_msm.msm_g1(p, q, s), msm.msm_affine(p, q, s)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_k10_g2_equals_the_plain_msm_and_host_ints(dev):

@@ -10,10 +10,18 @@ arithmetic):
   operands in Jacobian form with Z != 1, at infinity on either side,
   P == Q and P == -Q, against groth16/pairing;
 * K10's whole plan (``ops/cuda_msm.Schedule``, the glue, on CPU tensors,
-  and ``execute``: the run, bucket, window and Horner bodies through the
+  and ``execute``: the round, run, reduction and Horner bodies through the
   host build) against ``protocol._msm_lanes_host`` on a few hundred
-  points, with a skewed sample of mostly 0 and 1 scalars, and against the
-  JAX package's MSM outputs in tests/fixtures/torch_port_prove_b2.npz;
+  points, with a skewed sample of mostly 0 and 1 scalars, at every window
+  width the schedule can pick (8..16 bits), with scalars whose signed
+  digits carry into the top window (r - 1, 2^253 + small, digits of
+  exactly 2^(c-1) and the carries around it), with the affine rounds, the
+  runs' passes and the reduction's groups forced deep, on two lanes, over
+  G1 and G2, and against the JAX package's MSM outputs in
+  tests/fixtures/torch_port_prove_b2.npz;
+* ``chip_smoke.msm_ops``, the least Pippenger work on an MSM's scalars
+  (K10's bound), on hand-made scalars, never above the first design's
+  count;
 * K11's body against ``protocol._g1_mul`` and the fixture's ``fb_g2_*``;
 * the K10 and K11 wrappers on CPU tensors (their plain versions);
 * ``cuda_build.ptxas_report``'s names of K10's and K11's instances by
@@ -46,8 +54,8 @@ FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_prove_b2.npz"
 CPU = torch.device("cpu")
 Q = pr.Q
 _P64 = ctypes.POINTER(ctypes.c_int64)
-ENTRIES = ("pzk_msm_points", "pzk_msm_sum", "pzk_msm_window",
-           "pzk_msm_combine", "pzk_msm_horner", "pzk_fixed_base")
+ENTRIES = ("pzk_msm_points", "pzk_msm_round", "pzk_msm_sum",
+           "pzk_msm_reduce", "pzk_msm_horner", "pzk_fixed_base")
 
 
 @pytest.fixture(scope="module")
@@ -217,6 +225,119 @@ def test_msm_plan_g1_equals_host_msm(lib, n, skewed):
         g16._msm_lanes_host(q, sc, 2, False)
 
 
+def test_window_bits_switch_at_each_power_of_two():
+    """c = log2(n) - 3, clamped to 8..16: the point counts on both sides of
+    each switch."""
+    assert cuda_msm.window_bits(1) == cuda_msm.window_bits(4095) == 8
+    for c in range(cuda_msm.C_MIN + 1, cuda_msm.C_MAX + 1):
+        assert cuda_msm.window_bits((1 << (c + 3)) - 1) == c - 1
+        assert cuda_msm.window_bits(1 << (c + 3)) == c
+    assert cuda_msm.window_bits((1 << 21) - 1) == cuda_msm.window_bits(
+        1 << 30) == 16
+
+
+def _edge_scalars(c):
+    """Scalars whose signed c-bit digits reach the ends of their range and
+    carry: r - 1, 2^253 + small, a digit of exactly 2^(c-1) (no carry),
+    2^(c-1) + 1 (digit -(2^(c-1) - 1) and a carry), c-bit runs of ones (a
+    carry through every window), every window 2^(c-1)."""
+    half = 1 << (c - 1)
+    every = sum(half << (c * w) for w in range(-(-255 // c))) % pr.R
+    return [pr.R - 1, (1 << 253) + 5, half, half + 1, (half << c) + half - 1,
+            (1 << (4 * c)) - 1, (1 << 252) - 1, every, 0, 1]
+
+
+@pytest.mark.parametrize("c", range(cuda_msm.C_MIN, cuda_msm.C_MAX + 1))
+def test_signed_digits_rebuild_the_scalar(c):
+    r = random.Random(c)
+    ss = _edge_scalars(c) + [r.randrange(pr.R) for _ in range(20)]
+    sc = torch.from_numpy(bn.ints_to_limbs_batch(ss, 16).astype(np.int64))
+    d = cuda_msm.signed_digits(sc[:, None], c)
+    nwin = -(-255 // c)
+    assert d.shape == (1, nwin, len(ss)) and d.dtype == torch.int32
+    half = 1 << (c - 1)
+    assert int(d.max()) <= half and int(d.min()) >= -(half - 1)
+    got = [sum(int(d[0, w, j]) << (c * w) for w in range(nwin))
+           for j in range(len(ss))]
+    assert got == ss
+    assert int(d[0, 0, 2]) == half and int(d[0, 0, 3]) == -(half - 1)
+
+
+@pytest.mark.parametrize("c", range(cuda_msm.C_MIN, cuda_msm.C_MAX + 1))
+def test_msm_plan_every_window_width(lib, monkeypatch, c):
+    """The plan at each width the schedule can pick (forced here: the
+    points it takes to pick 16 bits are too many for the host build), on
+    the edge scalars and full-width ones, two lanes, against host ints."""
+    monkeypatch.setattr(cuda_msm, "window_bits", lambda n: c)
+    r = random.Random(100 + c)
+    n = 24
+    q = _g1_query(n, 7)
+    lanes = [_edge_scalars(c) + [r.randrange(pr.R) for _ in range(n - 10)]]
+    lanes.append([r.choice([0, 1, pr.R - 1, r.randrange(pr.R)])
+                  for _ in range(n)])
+    sc = np.stack([bn.ints_to_limbs_batch(v, 16) for v in lanes],
+                  axis=1).astype(np.int64)
+    px, py = (torch.from_numpy(t.astype(np.int64)) for t in q)
+    sched = cuda_msm.Schedule(torch.from_numpy(sc), False)
+    assert (sched.c, sched.nwin) == (c, -(-255 // c))
+    x, y = cuda_msm.execute(sched, cuda_msm.points_plain(px, py, False),
+                            host_call(lib))
+    assert _host_points(x.numpy(), y.numpy(), 2) == \
+        g16._msm_lanes_host(q, sc, 2, False)
+
+
+@pytest.mark.parametrize("round_min,group", [(1, 2), (40, 3), (1 << 30, 1)],
+                         ids=["all-rounds", "rounds-then-runs", "runs-only"])
+def test_msm_plan_rounds_passes_and_groups(lib, monkeypatch, round_min,
+                                           group):
+    """A skewed sample (lane 0 all 1 but a few: one bucket of ~300 points)
+    with the affine rounds run to the end, stopped part way, or only the
+    first, so that the bucket's tail goes through several passes of runs;
+    the reduction's groups cut small, joined in passes too."""
+    monkeypatch.setattr(cuda_msm, "ROUND_MIN_ADDS", round_min)
+    monkeypatch.setattr(cuda_msm, "GROUP", group)
+    r = random.Random(round_min + group)
+    n = 301
+    q = _g1_query(n, 5)
+    sc = _scalars(r, n, 2, True)
+    sc[:, 0, :] = 0
+    sc[0, 0, :] = 1
+    sc[:, 0, :3] = bn.ints_to_limbs_batch([pr.R - 1, 2, 1 << 200], 16)
+    px, py = (torch.from_numpy(t.astype(np.int64)) for t in q)
+    sched = cuda_msm.Schedule(torch.from_numpy(sc), False)
+    assert all(a.dtype == torch.int32 and a.is_contiguous()
+               for _, args in sched.steps[:-1] for a in args
+               if torch.is_tensor(a))          # the kernels' int32 words
+    if round_min == 1:
+        assert sched.rounds >= 9                    # ceil(log2(~300))
+    else:
+        assert sched.passes >= 4 and sched.rounds <= 3
+    x, y = cuda_msm.execute(sched, cuda_msm.points_plain(px, py, False),
+                            host_call(lib))
+    assert _host_points(x.numpy(), y.numpy(), 2) == \
+        g16._msm_lanes_host(q, sc, 2, False)
+
+
+def test_msm_plan_g2_rounds_and_passes(lib, fx, monkeypatch):
+    """G2: the fixture's points and scalars five times over (each bucket
+    then holds its points five times: the tangent case of the affine
+    rounds), the rounds and groups forced deep, 8-bit windows: five times
+    the JAX package's MSM."""
+    monkeypatch.setattr(cuda_msm, "ROUND_MIN_ADDS", 1)
+    monkeypatch.setattr(cuda_msm, "GROUP", 2)
+    px, py, sc = (torch.from_numpy(fx["msm_g2_" + k].astype(np.int64))
+                  .repeat(1, 1, 5) for k in ("px", "py", "scalars"))
+    sched = cuda_msm.Schedule(sc, True)
+    assert sched.rounds >= 3 and sched.c == 8
+    x, y = cuda_msm.execute(sched, cuda_msm.points_plain(px, py, True),
+                            host_call(lib))
+    for i in range(2):
+        want = g2.limbs_to_point(fx["msm_g2_x"][..., i],
+                                 fx["msm_g2_y"][..., i])
+        assert g2.limbs_to_point(x[..., i], y[..., i]) == \
+            (None if want is None else pr.ec_mul(want, 5))
+
+
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_msm_plan_equals_jax_fixture(lib, fx, curve):
     """The fixture's points hold zero scalars, an infinity entry (its
@@ -310,6 +431,95 @@ def test_msm_needs_its_points_off_a_card(fx):
     x, y = cuda_msm.msm_g1(px, py, sc, mont=mont)
     assert np.array_equal(x.numpy(), fx["msm_g1_x"])
     assert np.array_equal(y.numpy(), fx["msm_g1_y"])
+
+
+def test_schedule_refuses_what_its_int32_plan_cannot_hold(monkeypatch):
+    """The plan's index arrays are int32, the kernels' words: an MSM of
+    more than MAX_ITEMS non-zero digits over its lanes (4 of them must fit
+    an int32), or of more than 2^31 buckets, raises instead of wrapping;
+    one at the limit plans."""
+    assert 4 * cuda_msm.MAX_ITEMS <= 1 << 31
+    sc = torch.from_numpy(bn.ints_to_limbs_batch([1, 2, 3, 0, 5], 16)
+                          .astype(np.int64))[:, None].repeat(1, 2, 1)
+    monkeypatch.setattr(cuda_msm, "MAX_ITEMS", 8)   # 4 digits a lane
+    assert cuda_msm.Schedule(sc, False).items == 8
+    monkeypatch.setattr(cuda_msm, "MAX_ITEMS", 7)
+    with pytest.raises(ValueError, match="split the lanes"):
+        cuda_msm.Schedule(sc, False)
+    monkeypatch.setattr(cuda_msm, "window_bits", lambda n: 16)
+    many = torch.zeros((16, 4097, 1), dtype=torch.int64)  # 4097 * 2^19
+    with pytest.raises(ValueError, match="split the lanes"):
+        cuda_msm.Schedule(many, False)
+    assert cuda_msm.Schedule(many[:, :4096], False).items == 0
+
+
+def _least_work(lanes, is_g2, e):
+    """msm_ops's count over Python ints: the least over widths 4..20 and
+    unsigned or signed digits of the bucket adds (items less non-empty
+    buckets), the running sums and the Horner chains."""
+    best = None
+    for c in range(4, 21):
+        for signed in (False, True):
+            half, ops = 1 << (c - 1), 0
+            for ss in lanes:
+                nwin = -(-(255 if signed else 254) // c)
+                digits = [[0] * nwin for _ in ss]
+                for j, s in enumerate(ss):
+                    carry = 0
+                    for w in range(nwin):
+                        d = ((s >> (c * w)) & ((1 << c) - 1)) + carry
+                        carry = int(signed and d > half)
+                        digits[j][w] = d - (carry << c)
+                live = []
+                for w in range(nwin):
+                    mags = [abs(dj[w]) for dj in digits if dj[w]]
+                    ops += (len(mags) - len(set(mags))) * min(
+                        e["madd"], e["batch_add"])
+                    ops += 2 * max(max(mags, default=1) - 1, 0) * e["add"]
+                    live.append(bool(mags))
+                if any(live):
+                    top = max(w for w in range(nwin) if live[w])
+                    ops += (top * c * e["dbl"] + (sum(live) - 1) * e["add"]
+                            + e["affine"])
+            best = ops if best is None else min(best, ops)
+    return best
+
+
+@pytest.mark.parametrize("kind", ["zero", "one-point", "mostly-0-1",
+                                  "uniform"])
+def test_msm_ops_counts_the_least_pippenger_work(kind):
+    """chip_smoke.msm_ops (K10's bound): on hand-made scalars over two
+    lanes, the least work over window widths and digit signs counted again
+    over Python ints, never above the first design's count (16-bit
+    unsigned windows, msm_ops_16bit)."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    r = random.Random(kind)
+    n = 40
+
+    def draw(j):
+        if kind == "zero":
+            return 0
+        if kind == "one-point":
+            return 0 if j != 7 else r.randrange(pr.R)
+        if kind == "mostly-0-1":
+            return r.choice([0, 0, 1, 1, 1, 2, r.randrange(pr.R)])
+        return r.randrange(pr.R)
+    lanes = [[draw(j) for j in range(n)] for _ in range(2)]
+    sc = torch.from_numpy(np.stack([bn.ints_to_limbs_batch(v, 16)
+                                    for v in lanes], 1).astype(np.int64))
+    for is_g2 in (False, True):
+        e = cs.EC_OPS[is_g2]
+        got = cs.msm_ops(sc, is_g2)
+        assert got == _least_work(lanes, is_g2, e)
+        assert got <= cs.msm_ops_16bit(sc, is_g2)
+        if kind == "zero":
+            assert got == 0
+        if kind == "one-point":        # the zero scalars cost nothing
+            assert got == cs.msm_ops(sc[..., 5:10], is_g2)
+    one = torch.from_numpy(bn.ints_to_limbs_batch([1], 16).astype(np.int64))
+    assert cs.msm_ops(one, False) == cs.EC_OPS[False]["affine"]
 
 
 def test_ptxas_report_names_the_prover_kernels_by_field():

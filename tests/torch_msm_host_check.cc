@@ -5,12 +5,16 @@
 // The pzk_msm_* and pzk_fixed_base entries take the arguments of
 // csrc/msm.cu's and csrc/fixed_base.cu's C entries (the stream is ignored)
 // and run every thread of the launch in turn, so ops/cuda_msm.execute
-// drives them as it drives the card's kernels. The host_* entries expose
+// drives them as it drives the card's kernels; K10's G2 arithmetic
+// (fq::F2Pair) runs each item's two threads as coroutines that exchange
+// their words (tests/torch_host_threads.h). The host_* entries expose
 // the field and point arithmetic on the port's normal-form 16-bit limbs.
 #include <stdint.h>
 
 #include "fixed_base.cuh"
 #include "msm.cuh"
+
+#include "torch_host_threads.h"
 
 namespace {
 
@@ -62,6 +66,18 @@ int point_op(int op, const int64_t* p, int p_inf, const int64_t* q, int q_inf,
   return 0;
 }
 
+// body(i) for items 0..n-1: G1's one thread an item, or G2's pair of
+// coroutines an item
+template <class Body>
+void items(int g2, long n, const Body& body) {
+  for (long i = 0; i < n; ++i) {
+    if (g2)
+      run_threads(2, [&](unsigned) { body(i); });
+    else
+      body(i);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -87,40 +103,51 @@ int pzk_msm_points(int g2, const int64_t* px, const int64_t* py, long n,
                    uint32_t* out, void*) {
   for (long j = 0; j < n; ++j)
     g2 ? msm::points_thread<fq::F2>(px, py, n, out, j)
-       : msm::points_thread<fq::F1>(px, py, n, out, j);
+       : msm::points_thread<fq::F1Call>(px, py, n, out, j);
   return 0;
 }
 
-int pzk_msm_sum(int g2, const uint32_t* pts, const int64_t* idx,
-                const int64_t* start, const int64_t* len, const int64_t* dest,
-                long nrun, uint32_t* out, void*) {
-  for (long s = 0; s < nrun; ++s)
-    g2 ? msm::sum_thread<fq::F2>(pts, idx, start, len, dest, out, s)
-       : msm::sum_thread<fq::F1>(pts, idx, start, len, dest, out, s);
+int pzk_msm_round(int g2, const uint32_t* pts, const int32_t* idx,
+                  const uint32_t* in, const int32_t* src, long nout, long per,
+                  uint32_t* out, void*) {
+  long n = 0;              // threads of the launch that hold a slot
+  while ((n / 32) * 32 * per + n % 32 < nout) ++n;
+  items(g2, n, [&](long i) {
+    g2 ? msm::round_thread<fq::F2Pair>(pts, idx, in, src, nout, per, out, i)
+       : msm::round_thread<fq::F1Call>(pts, idx, in, src, nout, per, out, i);
+  });
   return 0;
 }
 
-int pzk_msm_window(int g2, const uint32_t* buckets, long nseg, uint32_t* s_out,
-                   uint32_t* t_out, void*) {
-  for (long i = 0; i < nseg; ++i)
-    g2 ? msm::window_thread<fq::F2>(buckets, s_out, t_out, i)
-       : msm::window_thread<fq::F1>(buckets, s_out, t_out, i);
+int pzk_msm_sum(int g2, const uint32_t* in, int aff, const int32_t* start,
+                const int32_t* stop, const int32_t* dest, long nrun,
+                uint32_t* out, uint32_t* last, void*) {
+  items(g2, nrun, [&](long s) {
+    g2 ? msm::sum_thread<fq::F2Pair>(in, aff, start, stop, dest, out, last, s)
+       : msm::sum_thread<fq::F1Call>(in, aff, start, stop, dest, out, last,
+                                     s);
+  });
   return 0;
 }
 
-int pzk_msm_combine(int g2, const uint32_t* s_in, const uint32_t* t_in,
-                    long nlw, uint32_t* out, void*) {
-  for (long lw = 0; lw < nlw; ++lw)
-    g2 ? msm::combine_thread<fq::F2>(s_in, t_in, out, lw)
-       : msm::combine_thread<fq::F1>(s_in, t_in, out, lw);
+int pzk_msm_reduce(int g2, const uint32_t* buckets, const int32_t* dig,
+                   const int32_t* first, const int32_t* dest, long ngroup,
+                   uint32_t* out, uint32_t* last, void*) {
+  items(g2, ngroup, [&](long g) {
+    g2 ? msm::reduce_thread<fq::F2Pair>(buckets, dig, first, dest, out, last,
+                                        g)
+       : msm::reduce_thread<fq::F1Call>(buckets, dig, first, dest, out, last,
+                                        g);
+  });
   return 0;
 }
 
-int pzk_msm_horner(int g2, const uint32_t* wsum, long L, int64_t* ox,
-                   int64_t* oy, void*) {
-  for (long l = 0; l < L; ++l)
-    g2 ? msm::horner_thread<fq::F2>(wsum, L, ox, oy, l)
-       : msm::horner_thread<fq::F1>(wsum, L, ox, oy, l);
+int pzk_msm_horner(int g2, const uint32_t* wsum, int nwin, int c, long L,
+                   int64_t* ox, int64_t* oy, void*) {
+  items(g2, L, [&](long l) {
+    g2 ? msm::horner_thread<fq::F2Pair>(wsum, nwin, c, L, ox, oy, l)
+       : msm::horner_thread<fq::F1Call>(wsum, nwin, c, L, ox, oy, l);
+  });
   return 0;
 }
 
